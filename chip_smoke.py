@@ -1,0 +1,270 @@
+#!/usr/bin/env python3
+"""Smoke test of omm_tpu_torch on one CUDA card: the quickest proof that
+the port builds, runs its main path through its kernels, and is right.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result line):
+
+  1. device  card name and power limit (nvidia-smi), torch and CUDA
+             versions; no CUDA device is an error, never a CPU fallback
+  2. build   the exact-classification kernel, compiled by nvcc for
+             sm_90a from omm_tpu_torch/csrc/
+  3. kernel  the port's stage_ab on the card for the first 48-triangle
+             batch of the benchmark workload (1024^2 FP32 clamp texture,
+             256 triangles from RandomState(42), subdivision 9); the
+             hand kernel and its plain torch twin on the same slot
+             stream must give exactly equal counts; both are timed with
+             CUDA events (median of 21 bursts of 5 calls after 3 warm-ups)
+  4. slice   omm_tpu_torch.bake(desc, device="cuda") on the whole
+             workload: 2 warm-ups, 5 timed bakes, each ending with the
+             result on the host; the kernel's launch count must grow
+  5. correct the five timed bakes are byte-equal; the result has the
+             expected shape (one index per triangle, every descriptor
+             at subdivision 9 with its 2-bit states in array_data); the
+             BakeResult of the first 16 triangles baked on the card is
+             byte-equal to the port's bake of them on the CPU, where the
+             exact stage runs its plain torch twin
+
+jax is blocked from import for the whole run: the port must not need it.
+Everything is reached through omm_tpu_torch.  The checks against the
+JAX package's numpy oracle run on the card as tests/test_torch_cuda.py.
+The second-to-last line is the kernels' JSON record, the last line the
+result: {"ok": true, "device": {...}}.
+"""
+import importlib.abc
+import sys
+
+
+class _NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ModuleNotFoundError(f"import of {name} blocked: the port "
+                                      "runs without jax")
+        return None
+
+
+sys.meta_path.insert(0, _NoJax())
+
+import json  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import time  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+N_TRIS = 256
+SUBDIV = 9
+BATCH = 48  # items per batch at subdiv 9 (bake's MAX_UTRI_PER_BATCH)
+
+
+def _workload():
+    """The benchmark workload (bench.py's _workload): a 1024^2 FP32 clamp
+    texture with a circle of radius 0.4 and 256 triangles."""
+    import omm_tpu_torch as ot
+    w = h = 1024
+    j, i = np.meshgrid(np.arange(h, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    u = i / np.float32(w)
+    v = j / np.float32(w)
+    r = np.sqrt((u - 0.5) ** 2 + (v - 0.5) ** 2)
+    plane = np.where(r < np.float32(0.4), np.float32(0.0),
+                     np.float32(1.0)).astype(np.float32)
+    plane[0, 0] = np.float32(0.6)
+    tex = ot.Texture([plane], ot.TextureFormat.FP32)
+    rng = np.random.RandomState(42)
+    uv_tris = []
+    for _ in range(N_TRIS):
+        base = rng.rand(2).astype(np.float32) * 0.2
+        uv_tris.append(np.array([base + [0.05, 0.1], base + [0.1, 0.7],
+                                 base + [0.7, 0.65]], dtype=np.float32))
+    return tex, uv_tris
+
+
+def _desc(tex, uv_tris):
+    import omm_tpu_torch as ot
+    n = len(uv_tris)
+    return ot.BakeInputDesc(
+        texture=tex, tex_coords=np.concatenate(uv_tris).astype(np.float32),
+        index_buffer=np.arange(3 * n, dtype=np.uint32), index_count=3 * n,
+        alpha_cutoff=0.5, max_subdivision_level=SUBDIV,
+        dynamic_subdivision_scale=0.0)
+
+
+def _cuda_ms(fn, reps=21, burst=5, warm=3):
+    """Median milliseconds per call of fn(), over `reps` CUDA-event-timed
+    bursts of `burst` back-to-back calls (a burst hides the launch
+    latency of one call; a host-bound fn is timed by its host cost)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(burst):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / burst)
+    return statistics.median(times)
+
+
+def _results_equal(a, b) -> bool:
+    return (np.array_equal(a.array_data, b.array_data)
+            and a.desc_array == b.desc_array
+            and a.index_format == b.index_format
+            and a.desc_array_histogram == b.desc_array_histogram
+            and a.index_histogram == b.index_histogram
+            and np.array_equal(a.index_buffer, b.index_buffer))
+
+
+def _check_shape(res, n_tris):
+    """One index per triangle, each a descriptor or a special index
+    (-1..-4); every descriptor at SUBDIV with 4**SUBDIV 2-bit states
+    laid end to end in array_data."""
+    nbytes = 4 ** SUBDIV // 4
+    idx = np.asarray(res.index_buffer).astype(np.int64)
+    if idx.shape != (n_tris,):
+        raise SystemExit(f"index buffer shape {idx.shape}, want ({n_tris},)")
+    nd = len(res.desc_array)
+    if not np.all(((idx >= 0) & (idx < nd)) | ((idx >= -4) & (idx < 0))):
+        raise SystemExit("index buffer holds an index out of range")
+    offs = sorted(d.offset for d in res.desc_array)
+    if (any(d.subdivision_level != SUBDIV for d in res.desc_array)
+            or offs != list(range(0, nd * nbytes, nbytes))
+            or len(res.array_data) != nd * nbytes):
+        raise SystemExit("descriptors or array_data have the wrong shape")
+    return nd
+
+
+def main():
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; it runs on the card "
+                         "only")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind} count {torch.cuda.device_count()}", flush=True)
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import batch, host
+    from omm_tpu_torch.bake import Options, _config, setup_work_items
+    from omm_tpu_torch.kernels import build, exact
+    from omm_tpu_torch.twophase import slot_stream
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    build.cuda_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
+          f"{build.BUILD_DIR})")
+    for line in build.BUILD_INFO.get("omm_exact_cuda", {}).get(
+            "log", "").splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # ---- 3. kernel ----
+    tex, uv_tris = _workload()
+    desc = _desc(tex, uv_tris)
+    opts = Options.from_flags(desc.bake_flags)
+    items = setup_work_items(desc, opts)
+    cfg = _config(desc, opts)
+    uvs = [it.uv_tri for it in items]
+    lg = host._group_level(tex, uvs, SUBDIV)
+    pre = batch.precompute(tex, uvs, SUBDIV, lg)
+    bp = batch.batch_planes(tex, cfg, pre, dev)
+    uv_flat, ccw = batch.item_tables(np.stack(uvs[:BATCH]), dev)
+    res = batch.run_stage_ab(bp, uv_flat, None, SUBDIV, True)
+    w, h = bp["mips"][0]
+    H, W = bp["HW"][0]
+    kw = dict(subdiv=SUBDIV, pad=bp["pads"][0], ntx=bp["ntxs"][0],
+              size=(w, h), period=bp["periods"][0], H=H, W=W,
+              rcp=bp["rcps"][0], alpha_cutoff=float(cfg.alpha_cutoff))
+    block_tile, ids_slot = slot_stream(
+        uv_flat, res["ids"], res["slots"][0], res["padMs"][0],
+        subdiv=SUBDIV, w=w, h=h, pad=kw["pad"], ntx=kw["ntx"],
+        period=kw["period"])
+    args = (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw)
+    ka, kb = exact.exact_counts(*args, **kw)
+    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+    torch.cuda.synchronize()
+    err = max(int((ka - ta).abs().max()), int((kb - tb).abs().max()))
+    print(f"kernel phase: levels {pre['levels']} window {H}x{W} "
+          f"TSA {kw['pad']} Cs {res['Cs']} K {res['K']} "
+          f"blocks {ids_slot.shape[0]} max_abs_err {err}")
+    if not (torch.equal(ka, ta) and torch.equal(kb, tb)):
+        raise SystemExit("kernel counts differ from the torch twin")
+    if int(((ka + kb) > 1).sum()) == 0:
+        raise SystemExit("no survivor straddles the cutoff: vacuous check")
+    ms = _cuda_ms(lambda: exact.exact_counts(*args, **kw))
+    plain_ms = _cuda_ms(lambda: exact.exact_counts(*args, exact="torch",
+                                                   **kw))
+    print(f"exact stage, {ids_slot.shape[0]} blocks: kernel {ms:.4f} ms, "
+          f"torch twin {plain_ms:.4f} ms ({card})", flush=True)
+
+    # ---- 4. slice ----
+    for _ in range(2):
+        ot.bake(desc, device=dev)
+    torch.cuda.synchronize()
+    ot.reset_launches()
+    times, results = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = ot.bake(desc, device=dev)  # numpy arrays: on the host
+        times.append(time.perf_counter() - t0)
+        results.append(got)
+    launches = ot.launches()["exact_classify"]
+    if launches == 0:
+        raise SystemExit("the bake never launched the exact kernel")
+    utri = N_TRIS * 4 ** SUBDIV
+    best, med = min(times), statistics.median(times)
+    print(f"bake: {N_TRIS} tris subdiv {SUBDIV} ({utri} utri): best "
+          f"{best:.4f} s median {med:.4f} s -> {utri / best / 1e6:.2f} "
+          f"M utri/s best, {utri / med / 1e6:.2f} M utri/s median; "
+          f"launches {launches} in 5 bakes ({card})", flush=True)
+    print(f"bake times s: {json.dumps([round(t, 6) for t in times])}")
+
+    # ---- 5. correctness ----
+    if not all(_results_equal(r, got) for r in results):
+        raise SystemExit("the timed bakes differ from one another")
+    nd = _check_shape(got, N_TRIS)
+    print(f"shape: {N_TRIS} indices, {nd} descriptors at subdiv {SUBDIV}, "
+          f"{len(got.array_data)} bytes of states; 5 bakes byte-equal")
+    desc16 = _desc(tex, uv_tris[:16])
+    r_card = ot.bake(desc16, device=dev)
+    t0 = time.perf_counter()
+    r_cpu = ot.bake(_desc(tex, uv_tris[:16]), device="cpu")
+    _check_shape(r_card, 16)
+    if not _results_equal(r_card, r_cpu):
+        raise SystemExit("16-triangle BakeResult on the card differs from "
+                         "the CPU bake")
+    print(f"16-triangle BakeResult byte-equal to the CPU bake (twin; "
+          f"{time.perf_counter() - t0:.1f} s on the CPU)")
+    if "jax" in sys.modules:
+        raise SystemExit("jax was imported")
+
+    print(json.dumps({"kernels": [{
+        "name": "exact_classify", "route": "cuda",
+        "source": "omm_tpu_torch/csrc/exact_classify.cu",
+        "replaces": "omm_tpu/kernels/pallas_classify.py:290",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,231 @@
+"""Batched classification of work items through the two-phase engine.
+
+Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`,
+main path only.  Per batch: class planes (cached per texture), then
+`stage_ab`, `stage_c_mip` for every mip, and `stage_d`, all on the given
+device; the packed states come back in one device-to-host copy.
+
+Items outside the engine's fast path raise NotImplementedError: the JAX
+package sends them to routes this port does not have yet (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from omm_tpu import geom, native
+from omm_tpu.types import (OpacityState, TextureFilterMode,
+                           get_num_micro_triangles)
+
+from . import host, planes
+from .host import TILE
+from .twophase import PackedStates, stage_ab, stage_c_mip, stage_d
+
+UO = int(OpacityState.UnknownOpaque)
+
+
+def unsupported_reason(cfg, uv_tri: np.ndarray, subdiv: int) -> str:
+    """Why an item is off the fast path, naming the ROADMAP item that
+    ports its route."""
+    if cfg.filter != TextureFilterMode.Linear:
+        what = "the nearest filter"
+    elif getattr(cfg, "disable_level_line", False):
+        what = "bakes without level-line intersection"
+    elif subdiv < 2:
+        what = "subdivision levels below 2"
+    elif bool(geom.is_degenerate(uv_tri)):
+        what = "degenerate triangles"
+    elif not bool(geom.winding_stable(uv_tri, subdiv)):
+        what = "winding-unstable slivers"
+    else:
+        what = "texel windows beyond the exact stage's tile"
+    return (f"omm_tpu_torch does not classify {what} yet "
+            "(ROADMAP A8: fallback routes)")
+
+
+def precompute(texture, uvs, subdiv, lg):
+    """The call-wide descent schedule and window maxima of one level
+    (twophase.classify_work_items_batches' precomp)."""
+    levels = host._descend_levels(texture, uvs, subdiv, lg)
+    uv_all = np.stack(uvs)
+    HW = []
+    HWl = [[] for _ in levels]
+    for mip in range(texture.mip_count):
+        Hbs, Wbs = host._span_windows(texture, uv_all, subdiv, mip)
+        HW.append((int(Hbs.max()), int(Wbs.max())))
+        for li, lv in enumerate(levels):
+            Hls, Wls = host._span_windows(texture, uv_all, lv, mip)
+            HWl[li].append((int(Hls.max()), int(Wls.max())))
+    return {"lg": lg, "levels": levels, "HW": HW, "HWl": HWl}
+
+
+def batch_planes(texture, cfg, precomp, device) -> dict:
+    """The device state a batch's stages read, per mip: the padded plane,
+    its tile columns, the address-mode period, and the class plane of
+    every descent level (all cached on the texture)."""
+    levels = precomp["levels"]
+    cutoff = float(cfg.alpha_cutoff)
+    ba = float(getattr(cfg, "border_alpha", 0.0))
+    bp = {"levels": levels, "HW": precomp["HW"], "mips": [], "pads": [],
+          "ntxs": [], "periods": [], "planes": [], "rcps": [],
+          "cls_lv": [[] for _ in levels]}
+    for mip in range(texture.mip_count):
+        Hb, Wb = precomp["HW"][mip]
+        pad = TILE + max(Hb + 2, Wb + 2)
+        period = host._period_for(texture, cfg.addr_mode, mip)
+        planeP = planes.padded_plane(texture, mip, cfg.addr_mode, pad, ba,
+                                     period, device)
+        info = texture.info[mip]
+        bp["mips"].append(texture.size(mip))
+        bp["pads"].append(pad)
+        bp["ntxs"].append(-(-planeP.shape[1] // TILE))
+        bp["periods"].append(period)
+        bp["planes"].append(planeP)
+        bp["rcps"].append((float(info.rcp_size[0]), float(info.rcp_size[1])))
+        for li in range(len(levels)):
+            Hl, Wl = precomp["HWl"][li][mip]
+            bp["cls_lv"][li].append(planes.class_plane_cached(
+                texture, mip, cfg.addr_mode, pad, Hl, Wl, cutoff, ba,
+                period, device))
+    return bp
+
+
+def run_stage_ab(bp, uv_flat, active, subdiv, all_active):
+    return stage_ab(bp["cls_lv"], uv_flat, active, subdiv=subdiv,
+                    levels=bp["levels"], mips=bp["mips"], pads=bp["pads"],
+                    ntxs=bp["ntxs"], periods=bp["periods"],
+                    all_active=all_active)
+
+
+def run_stage_c(bp, res, mip, uv_flat, ccw, subdiv, cfg):
+    w, h = bp["mips"][mip]
+    Hb, Wb = bp["HW"][mip]
+    return stage_c_mip(
+        bp["planes"][mip], uv_flat, ccw, res["ids"], res["slots"][mip],
+        res["padMs"][mip], subdiv=subdiv, w=w, h=h, pad=bp["pads"][mip],
+        ntx=bp["ntxs"][mip], H=Hb, W=Wb, rcp=bp["rcps"][mip],
+        alpha_cutoff=float(cfg.alpha_cutoff), period=bp["periods"][mip])
+
+
+def item_tables(uv_arr: np.ndarray, device):
+    """(T, 6) fp32 UV columns and (T,) int32 0/1 winding on `device`."""
+    T = uv_arr.shape[0]
+    uv_flat = torch.from_numpy(
+        uv_arr.reshape(T, 6).astype(np.float32)).to(device)
+    ccw = torch.from_numpy(geom.is_ccw(uv_arr).astype(np.int32)).to(device)
+    return uv_flat, ccw
+
+
+def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
+               device):
+    """Classify items[fast] (all on the fast path) into out[fast]."""
+    T = len(fast)
+    M = get_num_micro_triangles(subdiv)
+    uv_flat, ccw = item_tables(np.stack([items[i][0] for i in fast]),
+                               device)
+    active_np = None
+    active = None
+    if not all_active:
+        active_np = np.stack([np.ones(M, bool) if items[i][1] is None
+                              else items[i][1] == UO for i in fast])
+        active = torch.from_numpy(active_np).to(device)
+
+    # record_function labels name the stages in torch.profiler traces
+    # (the JAX engine's jax.named_scope labels)
+    with record_function("omm.class_planes"):
+        bp = batch_planes(texture, cfg, precomp, device)
+    with record_function("omm.stage_ab"):
+        res = run_stage_ab(bp, uv_flat, active, subdiv, all_active)
+    with record_function("omm.stage_c"):
+        mip_counts = [run_stage_c(bp, res, mi, uv_flat, ccw, subdiv, cfg)
+                      for mi in range(texture.mip_count)]
+    with record_function("omm.stage_d"):
+        packed = stage_d(res["sides"], res["nodes"], res["ids"], mip_counts,
+                         T=T, subdiv=subdiv, levels=bp["levels"],
+                         fmt=cfg.fmt, promotion=cfg.promotion,
+                         cutoff_gt=cfg.cutoff_gt, cutoff_le=cfg.cutoff_le)
+        packed = packed.cpu().numpy()  # the batch's device-to-host copy
+
+    for t, i in enumerate(fast):
+        if all_active:
+            out[i] = PackedStates(packed[t], M)
+            continue
+        unp = native.unpack_2bit_seq(packed[t], M)
+        states = items[i][1]
+        if states is None:
+            out[i] = unp
+        else:
+            act = active_np[t]
+            st = states.copy()
+            st[act] = unp[act]
+            out[i] = st
+
+
+def classify_work_items_batches(texture, cfg, batches, subdiv, *, device):
+    """Classify several batches of work items on `device`.
+
+    batches: lists of (uv_tri (3, 2) fp32, states (M,) uint8 or None);
+    None declares a fresh item (all UnknownOpaque).  Micro-triangles in
+    state UnknownOpaque are classified.  subdiv: one level for every
+    batch, or one per batch.  The exact stage runs the CUDA kernel on a
+    CUDA device and its torch twin on the CPU.
+
+    Returns per batch the list of results: a PackedStates (serialize's
+    2-bit rows) for every item of a batch whose items are all fully
+    active, else (M,) uint8 arrays.  Items with nothing left to
+    classify come back unchanged."""
+    device = torch.device(device)
+    subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
+               else [int(s) for s in subdiv])
+    if len(subdivs) != len(batches):
+        raise ValueError("one subdivision level per batch expected")
+
+    # route: fresh items and items with some UnknownOpaque left
+    routed = []
+    results = []
+    for items in batches:
+        out = [None] * len(items)
+        todo, mins = [], {}
+        for i, (uv, st) in enumerate(items):
+            if st is None:
+                mins[i] = UO
+                todo.append(i)
+                continue
+            mn = int(st.min())
+            mins[i] = mn
+            if mn == UO or int(st.max()) == UO:
+                todo.append(i)
+            else:
+                out[i] = st
+        routed.append((items, out, todo, mins))
+        results.append(out)
+
+    by_level: dict[int, list[int]] = {}
+    for bi, sd in enumerate(subdivs):
+        by_level.setdefault(sd, []).append(bi)
+    lgs = {}
+    for sd, bis in by_level.items():
+        uvs = [routed[bi][0][i][0] for bi in bis for i in routed[bi][2]]
+        lgs[sd] = host._group_level(texture, uvs, sd) if uvs else 1
+    fast_uvs: dict[int, list] = {sd: [] for sd in by_level}
+    for (items, out, todo, mins), sd in zip(routed, subdivs):
+        if not todo:
+            continue
+        mask = host._fast_path_mask(
+            texture, cfg, np.stack([items[i][0] for i in todo]), sd,
+            lgs[sd])
+        for k, i in enumerate(todo):
+            if not mask[k]:
+                raise NotImplementedError(
+                    unsupported_reason(cfg, items[i][0], sd))
+        fast_uvs[sd].extend(items[i][0] for i in todo)
+    precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
+                for sd, uvs in fast_uvs.items() if uvs}
+
+    for (items, out, todo, mins), sd in zip(routed, subdivs):
+        if todo:
+            _run_batch(texture, cfg, items, sd, todo, out,
+                       all(mins[i] == UO for i in todo), precomps[sd],
+                       device)
+    return results

@@ -1,0 +1,251 @@
+"""The exact classification stage: wrapper of the hand-written CUDA
+kernel, and its plain torch twin.
+
+Replaces the JAX package's only Pallas kernel (pallas_classify
+`_kernel_v3` = `derive_slot_geometry` + `_kernel_body`).  Each block of
+B survivor slots shares one texel tile; for each slot the stage decodes
+its flat id t*M + m, computes the micro-triangle's corner UVs by the bird
+curve, derives its raster window and tile offset, runs the conservative
+edge test and the level-line increments over the window's texels, and
+adds the bilinear seed at corner p0.  Slots holding -1 count 0.
+
+The TPU kernel gathers texels with one-hot matmuls; here both the kernel
+and the twin read the padded plane directly.  A read outside the block's
+TSA x TSA region, or past the padded plane's edge, gives 0.0, as the
+one-hot select and the halo tiles' zero fill do on the TPU.
+
+`exact_counts` takes the twin for CPU tensors.  For CUDA tensors it
+launches the kernel, or raises; `exact="torch"` selects the twin there
+for comparisons.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..bird import bary_cols, corner_cols, tri6_of
+from ..host import B, TILE, wrap_origin
+from ..levelline import (f32, level_line_values_kernel, tri_params)
+
+#: kernel launches made by `exact_counts` in this process
+LAUNCHES = 0
+
+
+def derive_slot_geometry(ids, uv6, ccw, bt, *, subdiv, pad, ntx, size,
+                         period=None):
+    """Per-slot geometry from survivor ids and the per-item tables, in
+    the fp32 operation order of pallas_classify.derive_slot_geometry.
+
+    ids: (S,) int flat id t*M + m, -1 = empty slot.  uv6: (T, 6) fp32;
+    ccw: (T,) int32 0/1 winding; bt: (S,) int tile id of each slot's
+    block.  Returns (muv_rows, qn_rows, x0, y0, x1, y1, ox, oy, sdy, sdx,
+    val)."""
+    val = ids >= 0
+    idc = torch.where(val, ids, 0).to(torch.int64)
+    sv_t = idc >> (2 * subdiv)
+    sv_m = idc & ((1 << (2 * subdiv)) - 1)
+    tri6 = tri6_of(uv6, sv_t)
+    flip = ccw[sv_t] == 0
+
+    bu, bv, bd = bary_cols(sv_m, subdiv)
+    (ax, ay), (bx2, by2), (cx, cy) = corner_cols(tri6, bu, bv, bd)
+    wf = f32(float(size[0]))
+    hf = f32(float(size[1]))
+    qs = [(ax * wf - 0.5, ay * hf - 0.5),
+          (bx2 * wf - 0.5, by2 * hf - 0.5),
+          (cx * wf - 0.5, cy * hf - 0.5)]
+
+    def fl(v):
+        return torch.floor(v).to(torch.int32)
+
+    def ce(v):
+        return torch.ceil(v).to(torch.int32)
+
+    mn, mx = torch.minimum, torch.maximum
+    x0 = fl(mn(mn(qs[0][0], qs[1][0]), qs[2][0]))
+    y0 = fl(mn(mn(qs[0][1], qs[1][1]), qs[2][1]))
+    x1 = ce(mx(mx(qs[0][0], qs[1][0]), qs[2][0]))
+    y1 = ce(mx(mx(qs[0][1], qs[1][1]), qs[2][1]))
+    sx = fl(qs[0][0])
+    sy = fl(qs[0][1])
+
+    qn_rows = []
+    for k in range(3):
+        src = [qs[k], qs[2 - k]]
+        qn_rows.append(torch.where(flip, src[1][0], src[0][0]))
+        qn_rows.append(torch.where(flip, src[1][1], src[0][1]))
+    muv_rows = [ax, ay, bx2, by2, cx, cy]
+
+    btx = bt % ntx
+    bty = bt // ntx
+    # memory offsets only: periodic modes wrap the window origin into
+    # the canonical period, the geometry keeps absolute coordinates
+    x0m, y0m = wrap_origin(x0, y0, period)
+    ox = (x0m + pad - btx * TILE).to(torch.int32)
+    oy = (y0m + pad - bty * TILE).to(torch.int32)
+    return (muv_rows, qn_rows, x0, y0, x1, y1, ox, oy, sy - y0, sx - x0,
+            val)
+
+
+def _counts_chunk(planeP, bt, ids, uv6, ccw, *, subdiv, pad, ntx, size,
+                  period, H, W, rcp, alpha_cutoff):
+    """(above, below) int32 (S,) for S slots (one chunk of blocks)."""
+    (muv, qn, x0, y0, x1, y1, ox, oy, sdy, sdx, val) = derive_slot_geometry(
+        ids, uv6, ccw, bt, subdiv=subdiv, pad=pad, ntx=ntx, size=size,
+        period=period)
+    device = planeP.device
+    S = ids.shape[0]
+    He, We = H + 2, W + 2
+    HW, Ke = H * W, He * We
+    TSA = TILE + max(He, We)
+    Hp, Wp = planeP.shape
+
+    # the slot's (He, We) window of its block's region, read directly
+    ry = oy[:, None].to(torch.int64) + torch.arange(He, device=device)
+    rx = ox[:, None].to(torch.int64) + torch.arange(We, device=device)
+    gy = (bt // ntx)[:, None].to(torch.int64) * TILE + ry
+    gx = (bt % ntx)[:, None].to(torch.int64) * TILE + rx
+    ok_y = (ry >= 0) & (ry < TSA) & (gy < Hp)
+    ok_x = (rx >= 0) & (rx < TSA) & (gx < Wp)
+    ext = planeP[gy.clamp(0, Hp - 1)[:, :, None],
+                 gx.clamp(0, Wp - 1)[:, None, :]]
+    ext = torch.where(ok_y[:, :, None] & ok_x[:, None, :], ext, 0.0)
+    gxv = ext[:, 0:H, 0:W].reshape(S, HW)
+    gyv = ext[:, 1:H + 1, 0:W].reshape(S, HW)
+    gzv = ext[:, 1:H + 1, 1:W + 1].reshape(S, HW)
+    gwv = ext[:, 0:H, 1:W + 1].reshape(S, HW)
+
+    k = torch.arange(HW, dtype=torch.int32, device=device)
+    px = x0[:, None] + k % W
+    py = y0[:, None] + k // W
+    sxf = px.to(torch.float32)
+    syf = py.to(torch.float32)
+    qnx = [qn[2 * e][:, None] for e in range(3)]
+    qny = [qn[2 * e + 1][:, None] for e in range(3)]
+    mask = (px < x1[:, None]) & (py < y1[:, None])
+    for e in range(3):
+        nx = qny[(e + 1) % 3] - qny[e]
+        ny = qnx[e] - qnx[(e + 1) % 3]
+        cc = -(nx * qnx[e] + ny * qny[e])
+        ev = (nx * sxf + ny * syf) + cc
+        bx = torch.where(nx > 0.0, 0.0, nx)
+        by = torch.where(ny > 0.0, 0.0, ny)
+        mask = mask & ((ev + bx + by) < 0.0)
+
+    tp = tri_params(*[r[:, None] for r in muv])
+    a_inc, b_inc = level_line_values_kernel(tp, px, py, gxv, gyv, gzv, gwv,
+                                            size, rcp, alpha_cutoff)
+    above = torch.where(mask, a_inc, 0).sum(dim=1, dtype=torch.int32)
+    below = torch.where(mask, b_inc, 0).sum(dim=1, dtype=torch.int32)
+
+    # bilinear seed at corner p0
+    ext_flat = ext.reshape(S, Ke)
+    soff = (sdy * We + sdx).to(torch.int64)
+
+    def pick(shift):
+        kk = soff + shift
+        v = ext_flat.gather(1, kk.clamp(0, Ke - 1)[:, None])[:, 0]
+        return torch.where((kk >= 0) & (kk < Ke), v, 0.0)
+
+    a, b, c, d = pick(0), pick(We), pick(1), pick(We + 1)
+    p0px = muv[0] * f32(float(size[0])) - 0.5
+    p0py = muv[1] * f32(float(size[1])) - 0.5
+    wxf = p0px - torch.floor(p0px)
+    wyf = p0py - torch.floor(p0py)
+    ac = a * (1.0 - wxf) + c * wxf
+    bdv = b * (1.0 - wxf) + d * wxf
+    seed = ac * (1.0 - wyf) + bdv * wyf
+    seed_above = f32(alpha_cutoff) < seed
+    above = above + seed_above.to(torch.int32)
+    below = below + (~seed_above).to(torch.int32)
+    return torch.where(val, above, 0), torch.where(val, below, 0)
+
+
+def exact_counts_torch(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv,
+                       pad, ntx, size, period, H, W, rcp, alpha_cutoff):
+    """Plain torch version of the exact stage: (above, below) int32
+    (nblk, B), vectorized over slots and window texels, in chunks of
+    blocks that bound the temporaries."""
+    nblk = ids_slot.shape[0]
+    above = torch.empty((nblk, B), dtype=torch.int32, device=ids_slot.device)
+    below = torch.empty_like(above)
+    step = max(1, (1 << 22) // (B * (H + 2) * (W + 2)))
+    for c0 in range(0, nblk, step):
+        c1 = min(nblk, c0 + step)
+        a, b = _counts_chunk(
+            planeP, block_tile[c0:c1].repeat_interleave(B),
+            ids_slot[c0:c1].reshape(-1), uv6, ccw, subdiv=subdiv, pad=pad,
+            ntx=ntx, size=size, period=period, H=H, W=W, rcp=rcp,
+            alpha_cutoff=alpha_cutoff)
+        above[c0:c1] = a.reshape(-1, B)
+        below[c0:c1] = b.reshape(-1, B)
+    return above, below
+
+
+def _check(planeP, block_tile, ids_slot, uv6, ccw, H, W):
+    dev = planeP.device
+    want = [(planeP, torch.float32, 2), (block_tile, torch.int32, 1),
+            (ids_slot, torch.int32, 2), (uv6, torch.float32, 2),
+            (ccw, torch.int32, 1)]
+    for name, (t, dt, nd) in zip(
+            ("planeP", "block_tile", "ids_slot", "uv6", "ccw"), want):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, planeP on {dev}")
+        if t.dtype != dt or t.dim() != nd:
+            raise ValueError(f"{name} must be a {nd}-d {dt} tensor, got "
+                             f"{t.dim()}-d {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    nblk = ids_slot.shape[0]
+    if ids_slot.shape[1] != B or block_tile.shape[0] != nblk:
+        raise ValueError(f"ids_slot must be (nblk, {B}) and block_tile "
+                         "(nblk,)")
+    if uv6.shape[1] != 6 or ccw.shape[0] != uv6.shape[0]:
+        raise ValueError("uv6 must be (T, 6) and ccw (T,)")
+    if TILE + max(H, W) + 2 > 2 * TILE:
+        raise ValueError(f"window {H}x{W} exceeds the exact stage's tile")
+
+
+def exact_counts(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv, pad,
+                 ntx, size, period, H, W, rcp, alpha_cutoff, exact=None):
+    """Exact-stage (above, below) int32 (nblk, B) counts.
+
+    planeP: padded plane (Hp, Wp) fp32; block_tile: (nblk,) int32 tile id
+    of each block; ids_slot: (nblk, B) int32 survivor ids (-1 = empty);
+    uv6: (T, 6) fp32 item UVs; ccw: (T,) int32 0/1 winding.
+    CPU tensors run the plain twin.  CUDA tensors launch the kernel, or
+    the twin when exact="torch"."""
+    global LAUNCHES
+    if exact not in (None, "torch"):
+        raise ValueError(f"exact must be None or 'torch', got {exact!r}")
+    _check(planeP, block_tile, ids_slot, uv6, ccw, H, W)
+    kw = dict(subdiv=subdiv, pad=pad, ntx=ntx, size=size, period=period,
+              H=H, W=W, rcp=rcp, alpha_cutoff=alpha_cutoff)
+    args = (planeP, block_tile, ids_slot, uv6, ccw)
+    dev = planeP.device
+    if dev.type == "cpu" or exact == "torch":
+        return exact_counts_torch(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no exact stage for device {dev}")
+
+    from .build import cuda_library
+    lib = cuda_library()
+    nblk = ids_slot.shape[0]
+    above = torch.empty((nblk, B), dtype=torch.int32, device=dev)
+    below = torch.empty_like(above)
+    if nblk == 0:
+        return above, below
+    Pw, Ph = period if period is not None else (0, 0)
+    Hp, Wp = planeP.shape
+    with torch.cuda.device(dev):
+        rc = lib.omm_exact_classify(
+            planeP.data_ptr(), Hp, Wp, block_tile.data_ptr(),
+            ids_slot.data_ptr(), nblk, uv6.data_ptr(), ccw.data_ptr(),
+            subdiv, pad, ntx, size[0], size[1], Pw, Ph, H, W,
+            f32(rcp[0]), f32(rcp[1]), f32(alpha_cutoff),
+            above.data_ptr(), below.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.omm_exact_error_string(rc).decode()
+        raise RuntimeError(f"exact_classify launch failed: {msg} ({rc})")
+    LAUNCHES += 1
+    return above, below

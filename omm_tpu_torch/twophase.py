@@ -1,0 +1,262 @@
+"""The two-phase engine's stage programs in torch ops.
+
+Counterparts of `omm_tpu.kernels.twophase`'s device programs:
+
+  stage_ab     _stageAB: dense level-0 window resolve, per-level
+               compaction and child expansion, survivor compaction, and
+               the per-mip stable tile sort with B-padded slot assignment
+  stage_c_mip  _stageC_mip: slot stream -> exact kernel -> survivor counts
+  stage_d      _stageD: per-mip count merge, per-level row overwrites,
+               survivor scatter, 2-bit state pack
+
+The JAX programs run at static capacities ("buckets") with an overflow
+flag, because every host sync crossed a slow link.  Here each level's
+count is read when it is needed and every tensor has its exact size:
+compaction is boolean-mask selection (scan order, like the stable sort
+it replaces), and no lane is ever invalid.  XLA's clamped gathers and
+dropped scatters therefore never arise, except in `sides_for`, whose
+class-plane lookup clamps explicitly as XLA's 2-D gather does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from omm_tpu.types import OpacityState, get_num_micro_triangles
+
+from .bird import bary_cols, corner_cols, tri6_of
+from .host import B, TILE, wrap_origin
+from .kernels.exact import exact_counts
+from .levelline import f32, get_state_from_coverage
+
+UO = int(OpacityState.UnknownOpaque)
+UT = int(OpacityState.UnknownTransparent)
+
+
+class PackedStates:
+    """A classified item's states in serialize's sequential 2-bit
+    OC1_4_State layout (state j in byte j>>2 at shift (j&3)*2).  Same
+    interface as the JAX package's class of this name, which
+    `WorkItem.set_packed_states` and `serialize_result` use."""
+
+    __slots__ = ("packed", "M", "blob_offset")
+
+    def __init__(self, packed: np.ndarray, M: int, blob_offset=None):
+        self.packed = packed
+        self.M = M
+        self.blob_offset = blob_offset
+
+    def unpack(self) -> np.ndarray:
+        from omm_tpu import native
+        return native.unpack_2bit_seq(self.packed, self.M)
+
+
+def window_origin(tri6, bu, bv, bd, w, h):
+    """floor(min corner * size - 0.5) per element, int32."""
+    (ax, ay), (bx, by), (cx, cy) = corner_cols(tri6, bu, bv, bd)
+    wf = f32(float(w))
+    hf = f32(float(h))
+    qxm = torch.minimum(torch.minimum(ax, bx), cx) * wf - 0.5
+    qym = torch.minimum(torch.minimum(ay, by), cy) * hf - 0.5
+    return (torch.floor(qxm).to(torch.int32),
+            torch.floor(qym).to(torch.int32))
+
+
+def sides_for(ids, tvec, level, uv_flat, planes_cls, mips, pads, periods):
+    """Combined-over-mips side (+1 / -1 / 0, int8) of the subtriangles
+    with curve index `ids` at `level` of items `tvec`.  The class-plane
+    lookup clamps out-of-range anchors per axis, as XLA's gather does."""
+    bu, bv, bd = bary_cols(ids, level)
+    tri6 = tri6_of(uv_flat, tvec)
+    side = None
+    for mi, (w, h) in enumerate(mips):
+        pad = pads[mi]
+        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
+        x0, y0 = wrap_origin(x0, y0, periods[mi])
+        cls = planes_cls[mi]
+        H2, W2 = cls.shape
+        yy = (y0.to(torch.int64) - 1 + pad).clamp(0, H2 - 1)
+        xx = (x0.to(torch.int64) - 1 + pad).clamp(0, W2 - 1)
+        s = cls[yy, xx]
+        side = s if side is None else torch.where(s == side, side,
+                                                  torch.zeros_like(s))
+    return side
+
+
+def tile_of(x0, y0, pad, ntx):
+    """Exact-stage tile id of a (wrapped) window origin."""
+    return ((y0 + pad) // TILE) * ntx + (x0 + pad) // TILE
+
+
+def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
+             ntxs, periods, all_active):
+    """Hierarchical descent over `levels` (l0 < ... < subdiv).
+
+    cls_levels: per level, the per-mip class planes.  uv_flat: (T, 6)
+    fp32.  active: (T, M) bool, or None when all_active.
+    Returns a dict: sides (per-level int8), nodes (per-level flat ids
+    t*4^l + n of the tested nodes after level 0), ids (the K exact-stage
+    survivors, flat t*M + m, in scan order), Cs (per-level parent
+    counts), K, slots (per mip, each survivor's slot) and padMs (per
+    mip, the B-padded slot total)."""
+    device = uv_flat.device
+    T = uv_flat.shape[0]
+    M = get_num_micro_triangles(subdiv)
+    m = len(levels) - 1
+    N0 = 4 ** levels[0]
+    span0 = M // N0
+    skip = all_active and len(levels) >= 2 \
+        and levels[-1] - levels[-2] == 1
+
+    node = torch.arange(T * N0, dtype=torch.int64, device=device)
+    side0 = sides_for(node & (N0 - 1), node >> (2 * levels[0]), levels[0],
+                      uv_flat, cls_levels[0], mips, pads, periods)
+    sides = [side0]
+    if all_active:
+        unres = side0 == 0
+    else:
+        gactive = active.reshape(T, N0, span0).any(dim=2).reshape(-1)
+        unres = (side0 == 0) & gactive
+
+    Cs = []
+    nodes = []
+    ids = None
+    for i in range(1, m + 1):
+        li = levels[i]
+        E = 4 ** (li - levels[i - 1])
+        par = node[unres]
+        Cs.append(int(par.shape[0]))
+        jj = torch.arange(E, dtype=torch.int64, device=device)
+        node = (par[:, None] * E + jj[None, :]).reshape(-1)
+        if i == m and skip:
+            # step-1 tail: every child goes to the exact stage
+            ids = node
+            break
+        side_i = sides_for(node & (4 ** li - 1), node >> (2 * li), li,
+                           uv_flat, cls_levels[i], mips, pads, periods)
+        sides.append(side_i)
+        nodes.append(node)
+        if i < m:
+            unres = side_i == 0
+        elif all_active:
+            ids = node[side_i == 0]
+        else:
+            ok = active[node >> (2 * subdiv), node & (M - 1)]
+            ids = node[ok & (side_i == 0)]
+    K = int(ids.shape[0])
+
+    sv_t = ids // M
+    sv_m = ids % M
+    bu, bv, bd = bary_cols(sv_m, subdiv)
+    tri6 = tri6_of(uv_flat, sv_t)
+    ar = torch.arange(K, dtype=torch.int64, device=device)
+    slots, padMs = [], []
+    for mi, (w, h) in enumerate(mips):
+        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
+        x0, y0 = wrap_origin(x0, y0, periods[mi])
+        tile = tile_of(x0.to(torch.int64), y0.to(torch.int64), pads[mi],
+                       ntxs[mi])
+        if K == 0:
+            slots.append(ar)
+            padMs.append(0)
+            continue
+        # stable tile sort; each tile group starts at a multiple of B
+        st, order = torch.sort(tile, stable=True)
+        is_start = torch.ones(K, dtype=torch.bool, device=device)
+        is_start[1:] = st[1:] != st[:-1]
+        start_pos = torch.cummax(torch.where(is_start, ar, 0), 0).values
+        rank = ar - start_pos
+        start_prev = torch.zeros_like(start_pos)
+        start_prev[1:] = start_pos[:-1]
+        prev_size = ar - start_prev
+        inc = torch.where(is_start & (ar > 0),
+                          ((prev_size + B - 1) // B) * B, 0)
+        offsets = torch.cumsum(inc, 0)
+        slot = torch.empty_like(ar)
+        slot[order] = offsets + rank
+        slots.append(slot)
+        padMs.append(int((offsets[-1] + ((rank[-1] + B) // B) * B).item()))
+    return {"sides": sides, "nodes": nodes, "ids": ids, "Cs": Cs, "K": K,
+            "slots": slots, "padMs": padMs}
+
+
+def slot_stream(uv_flat, ids, slot, padM, *, subdiv, w, h, pad, ntx,
+                period=None):
+    """The exact stage's input: (block_tile (nblk,) int32, ids_slot
+    (nblk, B) int32) with survivor k's id at slot[k] and -1 elsewhere.
+    Tile groups are B-aligned, so each block's first slot holds a
+    survivor, whose tile is the block's."""
+    device = ids.device
+    nblk = padM // B
+    ids_slot = torch.full((padM,), -1, dtype=torch.int32, device=device)
+    ids_slot[slot] = ids.to(torch.int32)
+    ids_slot = ids_slot.reshape(nblk, B)
+
+    M = get_num_micro_triangles(subdiv)
+    first = ids_slot[:, 0].to(torch.int64)
+    fb = torch.clamp_min(first, 0)
+    fbu, fbv, fbd = bary_cols(fb % M, subdiv)
+    fx0, fy0 = window_origin(tri6_of(uv_flat, fb // M), fbu, fbv, fbd, w, h)
+    fx0, fy0 = wrap_origin(fx0, fy0, period)
+    block_tile = torch.where(first >= 0, tile_of(fx0, fy0, pad, ntx),
+                             0).to(torch.int32)
+    return block_tile, ids_slot
+
+
+def stage_c_mip(planeP, uv_flat, ccw, ids, slot, padM, *, subdiv, w, h,
+                pad, ntx, H, W, rcp, alpha_cutoff, period=None):
+    """Exact-stage counts of one mip for the K survivors `ids` (flat
+    t*M + m) placed at `slot`: build the slot stream, run the exact
+    stage and gather (above, below) int32 (K,) back into survivor
+    order."""
+    if ids.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=ids.device)
+        return z, z
+    block_tile, ids_slot = slot_stream(uv_flat, ids, slot, padM,
+                                       subdiv=subdiv, w=w, h=h, pad=pad,
+                                       ntx=ntx, period=period)
+    above, below = exact_counts(
+        planeP, block_tile, ids_slot, uv_flat, ccw, subdiv=subdiv, pad=pad,
+        ntx=ntx, size=(w, h), period=period, H=H, W=W, rcp=rcp,
+        alpha_cutoff=alpha_cutoff)
+    return above.reshape(-1)[slot], below.reshape(-1)[slot]
+
+
+def stage_d(sides, nodes, ids, mip_counts, *, T, subdiv, levels, fmt,
+            promotion, cutoff_gt, cutoff_le):
+    """Final states of the batch, packed on the device in serialize's
+    sequential 2-bit layout: (T, M/4) uint8.  Level 0's sides are the
+    base; each later level overwrites its tested nodes' rows; the exact
+    survivors' states come last."""
+    device = ids.device
+    M = get_num_micro_triangles(subdiv)
+    N0 = 4 ** levels[0]
+    K = ids.shape[0]
+
+    above = torch.zeros(K, dtype=torch.int32, device=device)
+    below = torch.zeros(K, dtype=torch.int32, device=device)
+    alive = torch.ones(K, dtype=torch.bool, device=device)
+    for a, b in mip_counts:
+        above = above + torch.where(alive, a, 0)
+        below = below + torch.where(alive, b, 0)
+        st = get_state_from_coverage(fmt, promotion, cutoff_gt, cutoff_le,
+                                     above, below)
+        alive = alive & ~((st == UO) | (st == UT))
+    final = get_state_from_coverage(fmt, promotion, cutoff_gt, cutoff_le,
+                                    above, below)
+
+    lut = torch.tensor([int(cutoff_le), 0, int(cutoff_gt)],
+                       dtype=torch.uint8, device=device)
+
+    def map_side(s):
+        return lut[(s + 1).to(torch.int64)]
+
+    base = map_side(sides[0]).repeat_interleave(M // N0)
+    for i in range(1, len(sides)):
+        span = M // (4 ** levels[i])
+        base.view(-1, span)[nodes[i - 1]] = map_side(sides[i])[:, None]
+    base[ids] = final.to(torch.uint8)
+
+    s = base.view(T, M // 4, 4)
+    return (s[..., 0] | (s[..., 1] << 2) | (s[..., 2] << 4)
+            | (s[..., 3] << 6))

@@ -1,0 +1,218 @@
+"""omm_tpu_torch on a CUDA card: the hand-written exact kernel against
+its torch twin, the bake on the card against the bake on the CPU, and
+the benchmark bake on the card against the JAX package's numpy oracle.
+
+Every test is marked `cuda` and skips without a card.  This file
+imports no jax, so it also runs where jax is not installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import omm_tpu as omm  # noqa: E402
+import omm_tpu_torch as ot  # noqa: E402
+from omm_tpu import engine  # noqa: E402
+from omm_tpu_torch import batch, host  # noqa: E402
+from omm_tpu_torch.kernels import exact  # noqa: E402
+from omm_tpu_torch.twophase import slot_stream  # noqa: E402
+
+from fixtures import sine_fp32, sine_unorm8, standard_circle  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _cfg(**over):
+    base = dict(addr_mode=omm.TextureAddressMode.Clamp,
+                filter=omm.TextureFilterMode.Linear, alpha_cutoff=0.5,
+                border_alpha=0.0, fmt=omm.Format.OC1_4_State,
+                promotion=omm.UnknownStatePromotion.Nearest,
+                cutoff_gt=omm.OpacityState.Opaque,
+                cutoff_le=omm.OpacityState.Transparent)
+    base.update(over)
+    return engine.ResampleConfig(**base)
+
+
+def _tris(n, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = rng.rand(2).astype(np.float32) * 0.25
+        out.append(np.array([b + [0.05, 0.08], b + [0.12, 0.7],
+                             b + [0.72, 0.6]], np.float32))
+    return out
+
+
+_PERIODIC = np.array([[0.1, -0.2], [0.2, 1.1], [1.3, 0.7]], np.float32)
+
+CASES = {
+    "clamp": (lambda: omm.Texture([standard_circle(256, 256)],
+                                  omm.TextureFormat.FP32),
+              _cfg(), lambda: _tris(8, 7), 7),
+    "wrap": (lambda: omm.Texture([sine_fp32(128, 128)],
+                                 omm.TextureFormat.FP32),
+             _cfg(addr_mode=omm.TextureAddressMode.Wrap),
+             lambda: [_PERIODIC], 7),
+    "mirror": (lambda: omm.Texture([sine_fp32(128, 128)],
+                                   omm.TextureFormat.FP32),
+               _cfg(addr_mode=omm.TextureAddressMode.Mirror),
+               lambda: [_PERIODIC[::-1].copy()], 7),
+    "unorm8_2mip": (lambda: omm.Texture(
+        [sine_unorm8(128, 128), sine_unorm8(128, 128)[::2, ::2]],
+        omm.TextureFormat.UNORM8),
+        _cfg(promotion=omm.UnknownStatePromotion.ForceOpaque),
+        lambda: _tris(4, 3), 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_twin(case, cuda):
+    mk_tex, cfg, mk_tris, subdiv = CASES[case]
+    tex, tris = mk_tex(), mk_tris()
+    pre = batch.precompute(tex, tris, subdiv,
+                           host._group_level(tex, tris, subdiv))
+    bp = batch.batch_planes(tex, cfg, pre, cuda)
+    uv_flat, ccw = batch.item_tables(np.stack(tris), cuda)
+    res = batch.run_stage_ab(bp, uv_flat, None, subdiv, True)
+    for mi in range(tex.mip_count):
+        w, h = bp["mips"][mi]
+        H, W = bp["HW"][mi]
+        kw = dict(subdiv=subdiv, pad=bp["pads"][mi], ntx=bp["ntxs"][mi],
+                  size=(w, h), period=bp["periods"][mi], H=H, W=W,
+                  rcp=bp["rcps"][mi], alpha_cutoff=float(cfg.alpha_cutoff))
+        bt, ids = slot_stream(uv_flat, res["ids"], res["slots"][mi],
+                              res["padMs"][mi], subdiv=subdiv, w=w, h=h,
+                              pad=kw["pad"], ntx=kw["ntx"],
+                              period=kw["period"])
+        args = (bp["planes"][mi], bt, ids, uv_flat, ccw)
+        before = exact.LAUNCHES
+        ka, kb = exact.exact_counts(*args, **kw)
+        torch.cuda.synchronize()
+        assert exact.LAUNCHES == before + 1
+        ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+        assert exact.LAUNCHES == before + 1
+        assert torch.equal(ka, ta) and torch.equal(kb, tb)
+        assert ((ka + kb) > 1).any()
+
+
+@pytest.mark.parametrize("mode", list(omm.TextureAddressMode),
+                         ids=lambda m: m.name)
+def test_bake_on_card_equals_cpu(mode, cuda):
+    rng = np.random.RandomState(42)
+    tris = []
+    for _ in range(8):
+        base = rng.rand(2).astype(np.float32) * 0.2
+        tris.append(np.array([base + [0.05, 0.1], base + [0.1, 0.7],
+                              base + [0.7, 0.65]], np.float32))
+    desc = omm.BakeInputDesc(
+        texture=omm.Texture([standard_circle(256, 256)],
+                            omm.TextureFormat.FP32),
+        tex_coords=np.concatenate(tris), index_buffer=np.arange(
+            24, dtype=np.uint32), index_count=24, alpha_cutoff=0.5,
+        max_subdivision_level=7, dynamic_subdivision_scale=0.0,
+        runtime_sampler=omm.SamplerDesc(
+            addressing_mode=mode, filter=omm.TextureFilterMode.Linear,
+            border_alpha=0.7))
+    ot.reset_launches()
+    got = ot.bake(desc, device=cuda)
+    assert ot.launches()["exact_classify"] > 0
+    want = ot.bake(dataclasses.replace(desc), device="cpu")
+    assert np.array_equal(got.array_data, want.array_data)
+    assert got.desc_array == want.desc_array
+    assert np.array_equal(got.index_buffer, want.index_buffer)
+
+
+BENCH_TRIS, BENCH_SUBDIV = 256, 9
+
+
+def _bench_desc(n):
+    """The benchmark workload (bench.py's _workload): a 1024^2 FP32 clamp
+    texture with a circle of radius 0.4, and its first n of 256
+    triangles from RandomState(42), at subdivision 9."""
+    w = h = 1024
+    j, i = np.meshgrid(np.arange(h, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    r = np.sqrt((i / np.float32(w) - 0.5) ** 2
+                + (j / np.float32(w) - 0.5) ** 2)
+    plane = np.where(r < np.float32(0.4), np.float32(0.0),
+                     np.float32(1.0)).astype(np.float32)
+    plane[0, 0] = np.float32(0.6)
+    rng = np.random.RandomState(42)
+    tris = []
+    for _ in range(BENCH_TRIS):
+        base = rng.rand(2).astype(np.float32) * 0.2
+        tris.append(np.array([base + [0.05, 0.1], base + [0.1, 0.7],
+                              base + [0.7, 0.65]], np.float32))
+    tris = tris[:n]
+    desc = omm.BakeInputDesc(
+        texture=omm.Texture([plane], omm.TextureFormat.FP32),
+        tex_coords=np.concatenate(tris), index_buffer=np.arange(
+            3 * n, dtype=np.uint32), index_count=3 * n, alpha_cutoff=0.5,
+        max_subdivision_level=BENCH_SUBDIV, dynamic_subdivision_scale=0.0)
+    return desc, tris
+
+
+def test_bench_bake_matches_numpy_oracle(cuda):
+    """The whole benchmark bake on the card: the states of 8 fixed
+    triangles equal the numpy oracle (engine.resample_fine_item), as the
+    JAX package's parity gate checks them."""
+    from omm_tpu.bake import Options
+    from omm_tpu.stats import decode_states
+    from omm_tpu_torch.bake import _config
+    desc, tris = _bench_desc(BENCH_TRIS)
+    ot.reset_launches()
+    res = ot.bake(desc, device=cuda)
+    assert ot.launches()["exact_classify"] > 0
+    cfg = _config(desc, Options.from_flags(desc.bake_flags))
+    M = 4 ** BENCH_SUBDIV
+    for k in range(0, BENCH_TRIS, BENCH_TRIS // 8):
+        want = engine.resample_fine_item(desc.texture, cfg, tris[k],
+                                         BENCH_SUBDIV,
+                                         np.full(M, 3, np.uint8))
+        idx = int(res.index_buffer[k])
+        if idx < 0:  # special index: uniform FullyTransparent(-1)..UO(-4)
+            got = np.full(M, -idx - 1, np.uint8)
+        else:
+            d = res.desc_array[idx]
+            assert d.subdivision_level == BENCH_SUBDIV
+            got = decode_states(res.array_data, d.offset, BENCH_SUBDIV,
+                                d.format)
+        assert np.array_equal(got, want), k
+
+
+def test_bench_bake16_equals_numpy_backend(cuda):
+    """The first 16 benchmark triangles baked on the card give a
+    BakeResult byte-equal to the JAX package's numpy backend."""
+    desc, _ = _bench_desc(16)
+    got = ot.bake(desc, device=cuda)
+    want = omm.bake(dataclasses.replace(desc), backend="numpy")
+    assert np.array_equal(got.array_data, want.array_data)
+    assert got.desc_array == want.desc_array
+    assert got.index_format == want.index_format
+    assert np.array_equal(got.index_buffer, want.index_buffer)
+    assert got.desc_array_histogram == want.desc_array_histogram
+    assert got.index_histogram == want.index_histogram
+
+
+def test_wrapper_rejects_mixed_devices(cuda):
+    plane = torch.zeros((200, 200), device=cuda)
+    bt = torch.zeros(1, dtype=torch.int32)  # on the CPU
+    ids = torch.full((1, host.B), -1, dtype=torch.int32, device=cuda)
+    uv6 = torch.zeros((1, 6), device=cuda)
+    ccw = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        exact.exact_counts(plane, bt, ids, uv6, ccw, subdiv=3, pad=70,
+                           ntx=4, size=(64, 64), period=None, H=4, W=4,
+                           rcp=(1 / 64, 1 / 64), alpha_cutoff=0.5)
