@@ -10,26 +10,35 @@ and prints no result line):
   1. device  card name and power limit (nvidia-smi), torch and CUDA
              versions; no CUDA device is an error, never a CPU fallback
   2. build   the exact-classification kernel, compiled by nvcc for
-             sm_90a from omm_tpu_torch/csrc/
-  3. kernel  the port's stage_ab on the card for the first 48-triangle
-             batch of the benchmark workload (1024^2 FP32 clamp texture,
-             256 triangles from RandomState(42), subdivision 9); the
-             hand kernel and its plain torch twin on the same slot
-             stream must give exactly equal counts; both are timed with
-             CUDA events (median of 21 bursts of 5 calls after 3 warm-ups)
-  4. slice   omm_tpu_torch.bake(desc, device="cuda") on the whole
-             workload: 2 warm-ups, 5 timed bakes, each ending with the
-             result on the host; the kernel's launch count must grow
+             sm_90a from omm_tpu_torch/csrc/, with ptxas's register and
+             spill report and the launch shape
+  3. kernel  two slot streams from the port's stage_ab on the card: the
+             first 48-triangle batch of the benchmark workload (1024^2
+             FP32 clamp texture, 256 triangles from RandomState(42),
+             subdivision 9; window 4x4) and the same triangles at
+             subdivision 6 (a window of more than 32 texels); on each
+             the hand kernel and its plain torch twin must give exactly
+             equal counts.  On the bench stream: the work the stage must
+             do (exact_work) and its bound, and both versions' time by
+             CUDA events (median of 21 bursts of 5 calls after 3
+             warm-ups)
+  4. slice   omm_tpu_torch.bake(desc), on the card by default, on the
+             whole workload: 2 warm-ups, 5 timed bakes, each ending with
+             the result on the host; the kernel's launch count must grow
   5. correct the five timed bakes are byte-equal; the result has the
              expected shape (one index per triangle, every descriptor
              at subdivision 9 with its 2-bit states in array_data); the
              BakeResult of the first 16 triangles baked on the card is
              byte-equal to the port's bake of them on the CPU, where the
              exact stage runs its plain torch twin
+  6. timing  the kernel's device time on the bench stream (torch.profiler
+             over 50 launches) and its share of the bound; last, so that
+             the profiler's tracing does not reach the timed bakes
 
-jax is blocked from import for the whole run: the port must not need it.
-Everything is reached through omm_tpu_torch.  The checks against the
-JAX package's numpy oracle run on the card as tests/test_torch_cuda.py.
+jax and the JAX package omm_tpu are blocked from import for the whole
+run: the port must not need them.  Everything is reached through
+omm_tpu_torch.  The checks against the JAX package's numpy oracle run
+on the card as tests/test_torch_cuda.py.
 The second-to-last line is the kernels' JSON record, the last line the
 result: {"ok": true, "device": {...}}.
 """
@@ -37,11 +46,14 @@ import importlib.abc
 import sys
 
 
+_BLOCKED = ("jax", "jaxlib", "omm_tpu")
+
+
 class _NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in _BLOCKED:
             raise ModuleNotFoundError(f"import of {name} blocked: the port "
-                                      "runs without jax")
+                                      "runs without jax and the JAX package")
         return None
 
 
@@ -113,6 +125,49 @@ def _cuda_ms(fn, reps=21, burst=5, warm=3):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, n=50):
+    """Mean device milliseconds of the CUDA kernel named `kernel` per call
+    of fn(), from torch.profiler over n calls (device time alone, without
+    the host's launch cost); None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / n if us > 0 else None
+
+
+def slot_streams(tex, uvs, cfg, subdiv, n, dev):
+    """The exact stage's inputs for the first n items at `subdiv`:
+    ((planeP, block_tile, ids_slot, uv6, ccw), keyword arguments,
+    description) of mip 0, from the port's stage_ab on `dev`."""
+    from omm_tpu_torch import batch, host
+    from omm_tpu_torch.twophase import slot_stream
+    lg = host._group_level(tex, uvs, subdiv)
+    pre = batch.precompute(tex, uvs, subdiv, lg)
+    bp = batch.batch_planes(tex, cfg, pre, dev)
+    uv_flat, ccw = batch.item_tables(np.stack(uvs[:n]), dev)
+    res = batch.run_stage_ab(bp, uv_flat, None, subdiv, True)
+    w, h = bp["mips"][0]
+    H, W = bp["HW"][0]
+    kw = dict(subdiv=subdiv, pad=bp["pads"][0], ntx=bp["ntxs"][0],
+              size=(w, h), period=bp["periods"][0], H=H, W=W,
+              rcp=bp["rcps"][0], alpha_cutoff=float(cfg.alpha_cutoff))
+    block_tile, ids_slot = slot_stream(
+        uv_flat, res["ids"], res["slots"][0], res["padMs"][0],
+        subdiv=subdiv, w=w, h=h, pad=kw["pad"], ntx=kw["ntx"],
+        period=kw["period"])
+    what = (f"subdiv {subdiv}: levels {pre['levels']} window {H}x{W} "
+            f"TSA {kw['pad']} Cs {res['Cs']} K {res['K']} "
+            f"blocks {ids_slot.shape[0]}")
+    return (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw), kw, what
+
+
 def _results_equal(a, b) -> bool:
     return (np.array_equal(a.array_data, b.array_data)
             and a.desc_array == b.desc_array
@@ -160,10 +215,8 @@ def main():
           f"device {kind} count {torch.cuda.device_count()}", flush=True)
 
     import omm_tpu_torch as ot
-    from omm_tpu_torch import batch, host
     from omm_tpu_torch.bake import Options, _config, setup_work_items
     from omm_tpu_torch.kernels import build, exact
-    from omm_tpu_torch.twophase import slot_stream
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -182,47 +235,50 @@ def main():
     items = setup_work_items(desc, opts)
     cfg = _config(desc, opts)
     uvs = [it.uv_tri for it in items]
-    lg = host._group_level(tex, uvs, SUBDIV)
-    pre = batch.precompute(tex, uvs, SUBDIV, lg)
-    bp = batch.batch_planes(tex, cfg, pre, dev)
-    uv_flat, ccw = batch.item_tables(np.stack(uvs[:BATCH]), dev)
-    res = batch.run_stage_ab(bp, uv_flat, None, SUBDIV, True)
-    w, h = bp["mips"][0]
-    H, W = bp["HW"][0]
-    kw = dict(subdiv=SUBDIV, pad=bp["pads"][0], ntx=bp["ntxs"][0],
-              size=(w, h), period=bp["periods"][0], H=H, W=W,
-              rcp=bp["rcps"][0], alpha_cutoff=float(cfg.alpha_cutoff))
-    block_tile, ids_slot = slot_stream(
-        uv_flat, res["ids"], res["slots"][0], res["padMs"][0],
-        subdiv=SUBDIV, w=w, h=h, pad=kw["pad"], ntx=kw["ntx"],
-        period=kw["period"])
-    args = (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw)
-    ka, kb = exact.exact_counts(*args, **kw)
-    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
-    torch.cuda.synchronize()
-    err = max(int((ka - ta).abs().max()), int((kb - tb).abs().max()))
-    print(f"kernel phase: levels {pre['levels']} window {H}x{W} "
-          f"TSA {kw['pad']} Cs {res['Cs']} K {res['K']} "
-          f"blocks {ids_slot.shape[0]} max_abs_err {err}")
-    if not (torch.equal(ka, ta) and torch.equal(kb, tb)):
-        raise SystemExit("kernel counts differ from the torch twin")
-    if int(((ka + kb) > 1).sum()) == 0:
-        raise SystemExit("no survivor straddles the cutoff: vacuous check")
+    err = 0
+    for subdiv in (SUBDIV, 6):
+        args, kw, what = slot_streams(tex, uvs, cfg, subdiv, BATCH, dev)
+        ka, kb = exact.exact_counts(*args, **kw)
+        ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+        torch.cuda.synchronize()
+        e = max(int((ka - ta).abs().max()), int((kb - tb).abs().max()))
+        err = max(err, e)
+        shp = exact.shape(kw["H"], kw["W"])
+        print(f"kernel phase, {what}; launch {shp['threads']} threads x "
+              f"{shp['blocks_per_sm']} blocks/SM, {shp['smem_bytes']} B "
+              f"shared; max_abs_err {e}", flush=True)
+        if not (torch.equal(ka, ta) and torch.equal(kb, tb)):
+            raise SystemExit("kernel counts differ from the torch twin")
+        if int(((ka + kb) > 1).sum()) == 0:
+            raise SystemExit("no survivor straddles the cutoff: vacuous "
+                             "check")
+        if subdiv == SUBDIV:
+            bench = (args, kw)
+        elif kw["H"] * kw["W"] <= 32:
+            raise SystemExit(f"subdivision {subdiv} stream has a window of "
+                             f"{kw['H']}x{kw['W']}: want more than 32 "
+                             "texels")
+    args, kw = bench
+    work = exact.exact_work(*args, **kw)
+    bound_ms, bound_by = exact.bound(work)
+    print("exact_work, bench stream: " + ", ".join(
+        f"{k} {v}" for k, v in work.items()))
     ms = _cuda_ms(lambda: exact.exact_counts(*args, **kw))
     plain_ms = _cuda_ms(lambda: exact.exact_counts(*args, exact="torch",
                                                    **kw))
-    print(f"exact stage, {ids_slot.shape[0]} blocks: kernel {ms:.4f} ms, "
-          f"torch twin {plain_ms:.4f} ms ({card})", flush=True)
+    print(f"exact stage, {args[2].shape[0]} blocks: kernel {ms:.4f} ms, "
+          f"torch twin {plain_ms:.4f} ms (events); bound {bound_ms:.6f} ms "
+          f"({bound_by}) ({card})", flush=True)
 
     # ---- 4. slice ----
     for _ in range(2):
-        ot.bake(desc, device=dev)
+        ot.bake(desc)
     torch.cuda.synchronize()
     ot.reset_launches()
     times, results = [], []
     for _ in range(5):
         t0 = time.perf_counter()
-        got = ot.bake(desc, device=dev)  # numpy arrays: on the host
+        got = ot.bake(desc)  # numpy arrays: on the host
         times.append(time.perf_counter() - t0)
         results.append(got)
     launches = ot.launches()["exact_classify"]
@@ -243,7 +299,7 @@ def main():
     print(f"shape: {N_TRIS} indices, {nd} descriptors at subdiv {SUBDIV}, "
           f"{len(got.array_data)} bytes of states; 5 bakes byte-equal")
     desc16 = _desc(tex, uv_tris[:16])
-    r_card = ot.bake(desc16, device=dev)
+    r_card = ot.bake(desc16)
     t0 = time.perf_counter()
     r_cpu = ot.bake(_desc(tex, uv_tris[:16]), device="cpu")
     _check_shape(r_card, 16)
@@ -252,15 +308,25 @@ def main():
                          "the CPU bake")
     print(f"16-triangle BakeResult byte-equal to the CPU bake (twin; "
           f"{time.perf_counter() - t0:.1f} s on the CPU)")
-    if "jax" in sys.modules:
-        raise SystemExit("jax was imported")
+    if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
+        raise SystemExit("jax or the JAX package was imported")
+
+    # ---- 6. timing ----
+    dev_ms = device_ms(lambda: exact.exact_counts(*args, **kw),
+                       "exact_classify")
+    ms_dev = dev_ms if dev_ms is not None else ms
+    print(f"exact kernel device time {dev_ms} ms (profiler; None: not "
+          f"traced, events used), at {bound_ms / ms_dev:.4f} of its bound "
+          f"({card})", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",
         "replaces": "omm_tpu/kernels/pallas_classify.py:290",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "launches": launches, "launches_per_bake": launches // 5,
+        "max_abs_err": err, "ms": ms_dev, "event_ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,18 +3,23 @@
 A port of `omm_tpu`'s `bake(desc, backend="pallas")` main path (the
 linear-filter, level-line two-phase engine) to torch, with the exact
 classification stage as a hand-written CUDA kernel for Hopper.  The
-JAX package `omm_tpu` stays the reference: this package reuses its
-jax-free host modules and never imports jax.
+JAX package `omm_tpu` stays the reference; this package imports nothing
+of it and never imports jax: it keeps its own copies of the host code it
+needs, under the JAX package's module names (`types`, `texture`,
+`geom`, `bird`, `engine`, `bake`, `native`, ...).
 
-    import omm_tpu_torch
-    res = omm_tpu_torch.bake(desc, device="cuda")
+    import omm_tpu_torch as ot
+    res = ot.bake(desc)                # on the CUDA card
     # byte-equal to omm_tpu.bake(desc, backend="pallas")
 
-On CPU tensors the exact stage runs its plain torch twin.  The input
-and result types are the JAX package's jax-free ones, re-exported here.
+`bake` runs on "cuda" unless the caller passes device="cpu", where the
+exact stage runs its plain torch twin; asking for "cuda" without a card
+raises.  `convert` builds the port's input from the numpy arrays and
+enum values a JAX-package descriptor holds, and turns a result into
+plain numpy arrays and ints.
 """
-from omm_tpu.texture import Texture
-from omm_tpu.types import BakeInputDesc, BakeResult, TextureFormat
+from .texture import Texture
+from .types import BakeInputDesc, BakeResult, TextureFormat
 
 from .bake import bake
 from .batch import classify_work_items_batches

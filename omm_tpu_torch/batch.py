@@ -14,13 +14,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from omm_tpu import geom, native
-from omm_tpu.types import (OpacityState, TextureFilterMode,
-                           get_num_micro_triangles)
-
-from . import host, planes
+from . import geom, host, native, planes
 from .host import TILE
 from .twophase import PackedStates, stage_ab, stage_c_mip, stage_d
+from .types import OpacityState, TextureFilterMode, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
 
@@ -162,20 +159,33 @@ def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
             out[i] = st
 
 
-def classify_work_items_batches(texture, cfg, batches, subdiv, *, device):
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" without a CUDA device raises
+    (the port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("omm_tpu_torch: no CUDA device for device="
+                           f"{str(device)!r}; pass device='cpu' to run the "
+                           "plain torch path on the CPU")
+    return device
+
+
+def classify_work_items_batches(texture, cfg, batches, subdiv, *,
+                                device="cuda"):
     """Classify several batches of work items on `device`.
 
     batches: lists of (uv_tri (3, 2) fp32, states (M,) uint8 or None);
     None declares a fresh item (all UnknownOpaque).  Micro-triangles in
     state UnknownOpaque are classified.  subdiv: one level for every
-    batch, or one per batch.  The exact stage runs the CUDA kernel on a
-    CUDA device and its torch twin on the CPU.
+    batch, or one per batch.  device: "cuda" (the default; raises where
+    there is no card) runs the exact stage's CUDA kernel, "cpu" its
+    torch twin.
 
     Returns per batch the list of results: a PackedStates (serialize's
     2-bit rows) for every item of a batch whose items are all fully
     active, else (M,) uint8 arrays.  Items with nothing left to
     classify come back unchanged."""
-    device = torch.device(device)
+    device = check_device(device)
     subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
                else [int(s) for s in subdiv])
     if len(subdivs) != len(batches):

@@ -1,8 +1,9 @@
 // Per-slot math of the exact classification stage.
 //
 // Shared by the CUDA kernel (exact_classify.cu) and its host driver
-// (exact_host.cpp, which the CPU tests compile with g++ and hold against
-// the torch twin in omm_tpu_torch/kernels/exact.py).  Every function keeps
+// (exact_host.cpp, which walks a block in the kernel's order; the CPU
+// tests compile it with g++ and hold it against the torch twin in
+// omm_tpu_torch/kernels/exact.py).  Every function keeps
 // the fp32 operation order of the JAX package's pallas_classify
 // derive_slot_geometry + _kernel_body and kernels/levelline.py; results
 // are bit-exact only when built without FMA contraction and with IEEE
@@ -150,14 +151,14 @@ __host__ __device__ inline bool edge_hyperbola_hit(float p0x, float p0y,
 }
 
 // ---- one texel of the level-line kernel (bake_kernels_cpu.h:241-399) ----
-// gx..gw: the 2x2 quad at c00, c01, c11, c10.  Adds 0..2 to each count.
-__host__ __device__ inline void level_line_texel(const Tri& tri, int px,
-                                                 int py, float gx, float gy,
-                                                 float gz, float gw,
-                                                 float sizef_x, float sizef_y,
-                                                 float inv_x, float inv_y,
-                                                 float cutoff, int& above,
-                                                 int& below) {
+// gx..gw: the 2x2 quad at c00, c01, c11, c10.  Adds 0..2 to each count,
+// in two parts: the corner tests decide most texels; the rest (the
+// return value is true) run the edge tests.
+
+// The corner-in-triangle extremum search and the flat-quad test.
+__host__ __device__ inline bool level_line_corners(
+    const Tri& tri, int px, int py, float gx, float gy, float gz, float gw,
+    float inv_x, float inv_y, float cutoff, int& above, int& below) {
   float pixelf_x = (float)px + 0.5f;
   float pixelf_y = (float)py + 0.5f;
   float invpix_x = pixelf_x * inv_x;
@@ -173,19 +174,32 @@ __host__ __device__ inline void level_line_texel(const Tri& tri, int px,
       (in0 && !op0) || (in1 && !op1) || (in2 && !op2) || (in3 && !op3);
   above += is_op;
   below += is_tr;
-  if (is_op && is_tr) return;  // extremum found: level lines add nothing
+  if (is_op && is_tr) return false;  // extremum found: level lines add nothing
 
-  float a = gx;
   float b = gw - gx;
   float c = gy - gx;
   float d = gx + gz - gy - gw;
   if (is_zero(b, 1e-6f) && is_zero(c, 1e-6f) && is_zero(d, 1e-6f)) {
-    if (cutoff < a)
+    if (cutoff < gx)
       above += 1;
     else
       below += 1;
-    return;
+    return false;
   }
+  return true;
+}
+
+// The level-line edge tests of a texel the corner tests left open:
+// adds 1 to both counts at the first edge the level line crosses.
+__host__ __device__ inline void level_line_edges(
+    const Tri& tri, int px, int py, float gx, float gy, float gz, float gw,
+    float sizef_x, float sizef_y, float cutoff, int& above, int& below) {
+  float pixelf_x = (float)px + 0.5f;
+  float pixelf_y = (float)py + 0.5f;
+  float a = gx;
+  float b = gw - gx;
+  float c = gy - gx;
+  float d = gx + gz - gy - gw;
   float ha = a - cutoff;
   float cx[3] = {tri.p0x, tri.p1x, tri.p2x};
   float cy[3] = {tri.p0y, tri.p1y, tri.p2y};
@@ -203,19 +217,30 @@ __host__ __device__ inline void level_line_texel(const Tri& tri, int px,
   }
 }
 
-// ---- one survivor slot ----
-// id: flat survivor id t*M + m, or -1.  bt: the slot's block tile.
-// fetch(ry, rx): the block's region at (ry, rx), 0 outside [0, TSA)^2
-// and past the padded plane.
-template <class Fetch>
-__host__ __device__ inline void classify_slot(const Params& p, int id, int bt,
+// ---- one survivor slot, in three steps ----
+// The kernel runs them as three passes over a block of B slots: the
+// geometry of every slot, then every (slot, texel) pair of the H x W
+// window (the conservative mask; the corner tests of the covered pairs;
+// the edge tests of the pairs the corner tests leave open), then every
+// slot's seed.  Each step keeps the fp32
+// operation order of the JAX package's derive_slot_geometry and
+// _kernel_body.
+
+constexpr int LIST_TEXELS = 8;  // window texels per compaction chunk
+
+struct SlotGeom {
+  int x0, y0, x1, y1;  // raster window [x0, x1) x [y0, y1), texels
+  int ox, oy;          // window origin in the block's TSA x TSA region
+  float nx[3], ny[3], cc[3], bx[3], by[3];  // conservative edge functions
+  float mx[3], my[3];  // micro-triangle corners, UV
+};
+
+// Geometry of the slot holding flat survivor id t*M + m (id >= 0) in a
+// block of tile bt: bird-curve corners, raster window, region offset
+// and the edge functions of the CCW-normalised raster triangle.
+__host__ __device__ inline void slot_geometry(const Params& p, int id, int bt,
                                               const float* uv6,
-                                              const int* ccw,
-                                              const Fetch& fetch, int& above,
-                                              int& below) {
-  above = 0;
-  below = 0;
-  if (id < 0) return;
+                                              const int* ccw, SlotGeom& g) {
   int t = id >> (2 * p.subdiv);
   uint32_t mm = (uint32_t)id & ((1u << (2 * p.subdiv)) - 1u);
 
@@ -240,26 +265,23 @@ __host__ __device__ inline void classify_slot(const Params& p, int id, int bt,
   const float* u6 = uv6 + 6 * t;
   float cu[3] = {bu, bu + bd, bu};
   float cv[3] = {bv, bv, bv + bd};
-  float mx[3], my[3];
   for (int k = 0; k < 3; ++k) {
     float w_ = 1.f - cu[k] - cv[k];
-    mx[k] = u6[0] * w_ + u6[2] * cu[k] + u6[4] * cv[k];
-    my[k] = u6[1] * w_ + u6[3] * cu[k] + u6[5] * cv[k];
+    g.mx[k] = u6[0] * w_ + u6[2] * cu[k] + u6[4] * cv[k];
+    g.my[k] = u6[1] * w_ + u6[3] * cu[k] + u6[5] * cv[k];
   }
 
   // derive_slot_geometry
   float wf = (float)p.w, hf = (float)p.h;
   float qx[3], qy[3];
   for (int k = 0; k < 3; ++k) {
-    qx[k] = mx[k] * wf - 0.5f;
-    qy[k] = my[k] * hf - 0.5f;
+    qx[k] = g.mx[k] * wf - 0.5f;
+    qy[k] = g.my[k] * hf - 0.5f;
   }
-  int x0 = (int)floorf(fminf(fminf(qx[0], qx[1]), qx[2]));
-  int y0 = (int)floorf(fminf(fminf(qy[0], qy[1]), qy[2]));
-  int x1 = (int)ceilf(fmaxf(fmaxf(qx[0], qx[1]), qx[2]));
-  int y1 = (int)ceilf(fmaxf(fmaxf(qy[0], qy[1]), qy[2]));
-  int sx = (int)floorf(qx[0]);
-  int sy = (int)floorf(qy[0]);
+  g.x0 = (int)floorf(fminf(fminf(qx[0], qx[1]), qx[2]));
+  g.y0 = (int)floorf(fminf(fminf(qy[0], qy[1]), qy[2]));
+  g.x1 = (int)ceilf(fmaxf(fmaxf(qx[0], qx[1]), qx[2]));
+  g.y1 = (int)ceilf(fmaxf(fmaxf(qy[0], qy[1]), qy[2]));
   bool flip = ccw[t] == 0;
   float qnx[3], qny[3];
   for (int k = 0; k < 3; ++k) {
@@ -268,21 +290,37 @@ __host__ __device__ inline void classify_slot(const Params& p, int id, int bt,
     qny[k] = qy[s];
   }
   int btx = bt % p.ntx, bty = bt / p.ntx;
-  int x0m = p.Pw ? floor_mod(x0, p.Pw) : x0;
-  int y0m = p.Ph ? floor_mod(y0, p.Ph) : y0;
-  int ox = x0m + p.pad - btx * TILE;
-  int oy = y0m + p.pad - bty * TILE;
+  int x0m = p.Pw ? floor_mod(g.x0, p.Pw) : g.x0;
+  int y0m = p.Ph ? floor_mod(g.y0, p.Ph) : g.y0;
+  g.ox = x0m + p.pad - btx * TILE;
+  g.oy = y0m + p.pad - bty * TILE;
 
-  // conservative edge functions of the CCW-normalised raster triangle
-  float nx[3], ny[3], cc[3], bx[3], by[3];
   for (int e = 0; e < 3; ++e) {
     int n = e == 2 ? 0 : e + 1;
-    nx[e] = qny[n] - qny[e];
-    ny[e] = qnx[e] - qnx[n];
-    cc[e] = -(nx[e] * qnx[e] + ny[e] * qny[e]);
-    bx[e] = nx[e] > 0.f ? 0.f : nx[e];
-    by[e] = ny[e] > 0.f ? 0.f : ny[e];
+    g.nx[e] = qny[n] - qny[e];
+    g.ny[e] = qnx[e] - qnx[n];
+    g.cc[e] = -(g.nx[e] * qnx[e] + g.ny[e] * qny[e]);
+    g.bx[e] = g.nx[e] > 0.f ? 0.f : g.nx[e];
+    g.by[e] = g.ny[e] > 0.f ? 0.f : g.ny[e];
   }
+}
+
+// The conservative mask at texel (px, py) of a window [.., x1) x [.., y1).
+__host__ __device__ __forceinline__ bool texel_covered(
+    const float nx[3], const float ny[3], const float cc[3],
+    const float bx[3], const float by[3], int px, int py, int x1, int y1) {
+  bool in = (px < x1) && (py < y1);
+  float sxf = (float)px, syf = (float)py;
+  for (int e = 0; e < 3 && in; ++e) {
+    float ev = (nx[e] * sxf + ny[e] * syf) + cc[e];
+    in = (ev + bx[e] + by[e]) < 0.f;
+  }
+  return in;
+}
+
+// The point-in-triangle form of corners (mx, my).
+__host__ __device__ __forceinline__ Tri make_tri(const float mx[3],
+                                                 const float my[3]) {
   Tri tri;
   tri.p0x = mx[0];
   tri.p0y = my[0];
@@ -296,30 +334,40 @@ __host__ __device__ inline void classify_slot(const Params& p, int id, int bt,
   tri.p1p0y = tri.p1y - tri.p0y;
   tri.p2p1x = tri.p2x - tri.p1x;
   tri.p2p1y = tri.p2y - tri.p1y;
+  return tri;
+}
 
-  int a_cnt = 0, b_cnt = 0;
-  for (int dy = 0; dy < p.H; ++dy) {
-    int py = y0 + dy;
-    float syf = (float)py;
-    for (int dx = 0; dx < p.W; ++dx) {
-      int px = x0 + dx;
-      float sxf = (float)px;
-      bool in = (px < x1) && (py < y1);
-      for (int e = 0; e < 3 && in; ++e) {
-        float ev = (nx[e] * sxf + ny[e] * syf) + cc[e];
-        in = (ev + bx[e] + by[e]) < 0.f;
-      }
-      if (!in) continue;
-      float gx = fetch(oy + dy, ox + dx);
-      float gy = fetch(oy + dy + 1, ox + dx);
-      float gz = fetch(oy + dy + 1, ox + dx + 1);
-      float gw = fetch(oy + dy, ox + dx + 1);
-      level_line_texel(tri, px, py, gx, gy, gz, gw, wf, hf, p.rcp_x,
-                       p.rcp_y, p.cutoff, a_cnt, b_cnt);
-    }
-  }
+// Level-line increments of one covered texel (px, py) whose 2x2 quad
+// is gx..gw, in its two parts: texel_corners adds the corner tests'
+// increments and returns true when texel_edges must run.
+__host__ __device__ __forceinline__ bool texel_corners(
+    const Params& p, const Tri& tri, int px, int py, float gx, float gy,
+    float gz, float gw, int& above, int& below) {
+  return level_line_corners(tri, px, py, gx, gy, gz, gw, p.rcp_x, p.rcp_y,
+                            p.cutoff, above, below);
+}
 
-  // bilinear seed at corner p0, read from the slot's window
+__host__ __device__ __forceinline__ void texel_edges(
+    const Params& p, const Tri& tri, int px, int py, float gx, float gy,
+    float gz, float gw, int& above, int& below) {
+  level_line_edges(tri, px, py, gx, gy, gz, gw, (float)p.w, (float)p.h,
+                   p.cutoff, above, below);
+}
+
+// Bilinear seed at corner p0 = (mx0, my0) of a slot whose window starts
+// at texel (x0, y0), region offset (ox, oy): adds 1 to above or below.
+// fetch(ry, rx): the block's region at (ry, rx), 0 outside [0, TSA)^2
+// and past the padded plane.
+template <class Fetch>
+__host__ __device__ inline void slot_seed(const Params& p, int x0, int y0,
+                                          int ox, int oy, float mx0,
+                                          float my0, const Fetch& fetch,
+                                          int& above, int& below) {
+  float wf = (float)p.w, hf = (float)p.h;
+  float p0px = mx0 * wf - 0.5f;
+  float p0py = my0 * hf - 0.5f;
+  int sx = (int)floorf(p0px);
+  int sy = (int)floorf(p0py);
   int We = p.W + 2, Ke = (p.H + 2) * We;
   int soff = (sy - y0) * We + (sx - x0);
   float sv[4];
@@ -328,19 +376,15 @@ __host__ __device__ inline void classify_slot(const Params& p, int id, int bt,
     int k = soff + shifts[i];
     sv[i] = (k >= 0 && k < Ke) ? fetch(oy + k / We, ox + k % We) : 0.f;
   }
-  float p0px = mx[0] * wf - 0.5f;
-  float p0py = my[0] * hf - 0.5f;
   float wxf = p0px - floorf(p0px);
   float wyf = p0py - floorf(p0py);
   float ac = sv[0] * (1.f - wxf) + sv[2] * wxf;
   float bdv = sv[1] * (1.f - wxf) + sv[3] * wxf;
   float seed = ac * (1.f - wyf) + bdv * wyf;
   if (p.cutoff < seed)
-    a_cnt += 1;
+    above += 1;
   else
-    b_cnt += 1;
-  above = a_cnt;
-  below = b_cnt;
+    below += 1;
 }
 
 }  // namespace omm_exact

@@ -1,20 +1,19 @@
 """Host-side numpy helpers of the two-phase engine.
 
 These functions live in `omm_tpu.kernels.twophase` and
-`omm_tpu.kernels.mxu_classify`, which load jax when imported; the
-port copies them here so that nothing it runs needs jax.  Each copy is
-pinned equal to its original by tests/test_torch_host.py.  The
-environment switches of the originals are not carried over: every
-function follows its original's default.
+`omm_tpu.kernels.mxu_classify`, which load jax when imported; the port
+keeps its own copies here.  Each copy is pinned equal to its original by
+tests/test_torch_host.py.  The environment switches of the originals are
+not carried over: every function follows its original's default.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from omm_tpu import bird, geom
-from omm_tpu.texture import Texture, get_tex_coord
-from omm_tpu.types import (TextureAddressMode, TextureFilterMode,
-                           get_num_micro_triangles)
+from . import bird, geom
+from .texture import Texture, get_tex_coord
+from .types import (TextureAddressMode, TextureFilterMode,
+                    get_num_micro_triangles)
 
 #: texel tile edge of the exact stage (pallas_classify.TILE default)
 TILE = 64

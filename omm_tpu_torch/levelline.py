@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from omm_tpu.types import Format, OpacityState, UnknownStatePromotion
+from .types import Format, OpacityState, UnknownStatePromotion
 
 
 def f32(v) -> float:
@@ -47,11 +47,13 @@ def _length(dx, dy):
     return sqrt_rn(dx * dx + dy * dy)
 
 
-def edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, hb, hc, hd):
+def edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, hb, hc, hd, branches=False):
     """TestEdgeHyperbolaIntersection (bake_kernels_cpu.h:144-238).
 
     Edge endpoints (p0, p1) in texel-local coordinates; hyperbola
-    f(x,y) = ha + hb*x + hc*y + hd*x*y = 0.  Returns a bool tensor."""
+    f(x,y) = ha + hb*x + hc*y + hd*x*y = 0.  Returns a bool tensor, or
+    with branches=True (hit, hyperbola, roots): whether the test takes
+    the hyperbola branch, and whether that branch has real roots."""
     swap = p0x > p1x
     q0x = torch.where(swap, p1x, p0x)
     q0y = torch.where(swap, p1y, p0y)
@@ -112,7 +114,11 @@ def edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, hb, hc, hd):
     gate = ((vertical & ~is_zero(v_c0))
             | (~vertical & c0_zero & ~is_zero(c1))
             | (~vertical & ~c0_zero & real))
-    return gate & (point_hit(pax, pay) | point_hit(pbx, pby))
+    hit = gate & (point_hit(pax, pay) | point_hit(pbx, pby))
+    if not branches:
+        return hit
+    hyper = ~vertical & ~c0_zero
+    return hit, hyper, hyper & real
 
 
 def point_in_tri_cached(tp, px, py):
@@ -136,11 +142,17 @@ def tri_params(p0x, p0y, p1x, p1y, p2x, p2y):
 
 
 def level_line_values_kernel(tp, px_i, py_i, gx, gy, gz, gw, tex_size,
-                             rcp_size, alpha_cutoff):
+                             rcp_size, alpha_cutoff, work=None):
     """Per-(micro-triangle, texel) increments of the level-line kernel
     (bake_kernels_cpu.h:241-399), non-degenerate branch, with the 2x2
     quad values already fetched (x=c00, y=c01, z=c11, w=c10).
-    Returns (above_inc, below_inc) int32 tensors (values 0..2)."""
+    Returns (above_inc, below_inc) int32 tensors (values 0..2).
+
+    work: a dict that, when given, receives per texel what a kernel that
+    stops at the first decision does: "level_line" (the texel passes the
+    extremum and flat-quad tests), and among those "edges" (edge tests
+    run up to the first hit), "hyperbola" (of them, tests that take the
+    hyperbola branch) and "roots" (hyperbola tests with real roots)."""
     cutoff = f32(alpha_cutoff)
     sizef_x = f32(float(tex_size[0]))
     sizef_y = f32(float(tex_size[1]))
@@ -180,12 +192,23 @@ def level_line_values_kernel(tp, px_i, py_i, gx, gy, gz, gw, tex_size,
     corner = [(tp["p0x"], tp["p0y"]), (tp["p1x"], tp["p1y"]),
               (tp["p2x"], tp["p2y"])]
     hit = None
+    if work is not None:
+        todo = ~early_done & ~uniform
+        work.update(level_line=todo, edges=0, hyperbola=0, roots=0)
     for e in range(3):
         p0x = sizef_x * corner[e][0] - pixelf_x
         p0y = sizef_y * corner[e][1] - pixelf_y
         p1x = sizef_x * corner[(e + 1) % 3][0] - pixelf_x
         p1y = sizef_y * corner[(e + 1) % 3][1] - pixelf_y
-        h = edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, b, c, d)
+        if work is None:
+            h = edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, b, c, d)
+        else:
+            h, hyp, roots = edge_hyperbola_hit(p0x, p0y, p1x, p1y, ha, b, c,
+                                               d, branches=True)
+            for key, v in (("edges", todo), ("hyperbola", todo & hyp),
+                           ("roots", todo & roots)):
+                work[key] = work[key] + v.to(torch.int32)
+            todo = todo & ~h
         hit = h if hit is None else (hit | h)
 
     ll_above = uni_above | (~uniform & hit)

@@ -15,10 +15,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from omm_tpu.texture import Texture
-
 from . import host
 from .levelline import f32
+from .texture import Texture
 
 #: Relative margin below which the window test refuses to resolve
 #: (twophase.PHASE1_MARGIN).

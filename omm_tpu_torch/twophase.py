@@ -22,12 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from omm_tpu.types import OpacityState, get_num_micro_triangles
-
-from .bird import bary_cols, corner_cols, tri6_of
+from .bird_torch import bary_cols, corner_cols, tri6_of
 from .host import B, TILE, wrap_origin
 from .kernels.exact import exact_counts
 from .levelline import f32, get_state_from_coverage
+from .native import unpack_2bit_seq
+from .types import OpacityState, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
 UT = int(OpacityState.UnknownTransparent)
@@ -47,8 +47,7 @@ class PackedStates:
         self.blob_offset = blob_offset
 
     def unpack(self) -> np.ndarray:
-        from omm_tpu import native
-        return native.unpack_2bit_seq(self.packed, self.M)
+        return unpack_2bit_seq(self.packed, self.M)
 
 
 def window_origin(tri6, bu, bv, bd, w, h):

@@ -14,7 +14,7 @@ from omm_tpu_torch import batch  # noqa: E402
 from omm_tpu_torch.twophase import PackedStates  # noqa: E402
 
 from test_torch_twophase import (CASES, UO, _all_active, _cfg,  # noqa: E402
-                                 _circle, _tris)
+                                 _circle, _tris, port_inputs)
 
 
 def _oracle(tex, cfg, tri, subdiv, st):
@@ -32,8 +32,8 @@ def _states(x):
 def test_classify_batches_match_jax_and_oracle(case):
     mk_tex, cfg, mk_items, subdiv = CASES[case]
     tex, items = mk_tex(), mk_items(subdiv)
-    got = batch.classify_work_items_batches(tex, cfg, [items], subdiv,
-                                            device="cpu")[0]
+    got = batch.classify_work_items_batches(*port_inputs(tex, cfg), [items],
+                                            subdiv, device="cpu")[0]
     want = tp.classify_work_items_batches(
         tex, cfg, [[(t, None if st is None else st.copy())
                     for t, st in items]], subdiv)[0]
@@ -56,8 +56,8 @@ def test_classify_batches_multi_level_and_resolved_items():
     tris = _tris(3, seed=5)
     done = np.zeros(omm.get_num_micro_triangles(4), np.uint8)
     batches = [[(tris[0], None), (tris[1], done)], [(tris[2], None)]]
-    got = batch.classify_work_items_batches(tex, cfg, batches, [4, 6],
-                                            device="cpu")
+    got = batch.classify_work_items_batches(*port_inputs(tex, cfg), batches,
+                                            [4, 6], device="cpu")
     assert got[0][1] is done
     for (b, sd) in ((0, 4), (1, 6)):
         g = _states(got[b][0])

@@ -1,14 +1,15 @@
 """omm_tpu_torch on a CUDA card: the hand-written exact kernel against
-its torch twin, the bake on the card against the bake on the CPU, and
-the benchmark bake on the card against the JAX package's numpy oracle.
+its torch twin (windows of up to and over 32 texels, periodic address
+modes), the bake on the card (its default device) against the bake on
+the CPU, and the benchmark bake on the card against the JAX package's
+numpy oracle.  The port's inputs are built through convert from the
+same numpy arrays as the JAX package's.
 
 Every test is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -18,7 +19,9 @@ torch.set_num_threads(2)
 import omm_tpu as omm  # noqa: E402
 import omm_tpu_torch as ot  # noqa: E402
 from omm_tpu import engine  # noqa: E402
-from omm_tpu_torch import batch, host  # noqa: E402
+from omm_tpu_torch import batch, convert, host  # noqa: E402
+from omm_tpu_torch import engine as tengine  # noqa: E402
+from omm_tpu_torch import types as ttypes  # noqa: E402
 from omm_tpu_torch.kernels import exact  # noqa: E402
 from omm_tpu_torch.twophase import slot_stream  # noqa: E402
 
@@ -35,14 +38,16 @@ def cuda():
 
 
 def _cfg(**over):
-    base = dict(addr_mode=omm.TextureAddressMode.Clamp,
-                filter=omm.TextureFilterMode.Linear, alpha_cutoff=0.5,
-                border_alpha=0.0, fmt=omm.Format.OC1_4_State,
-                promotion=omm.UnknownStatePromotion.Nearest,
-                cutoff_gt=omm.OpacityState.Opaque,
-                cutoff_le=omm.OpacityState.Transparent)
+    """The port's ResampleConfig; enums as integer values."""
+    base = dict(addr_mode=2, filter=1, alpha_cutoff=0.5, border_alpha=0.0,
+                fmt=2, promotion=0, cutoff_gt=1, cutoff_le=0)
     base.update(over)
-    return engine.ResampleConfig(**base)
+    types = dict(addr_mode=ttypes.TextureAddressMode,
+                 filter=ttypes.TextureFilterMode, fmt=ttypes.Format,
+                 promotion=ttypes.UnknownStatePromotion,
+                 cutoff_gt=ttypes.OpacityState, cutoff_le=ttypes.OpacityState)
+    return tengine.ResampleConfig(**{
+        k: types[k](v) if k in types else v for k, v in base.items()})
 
 
 def _tris(n, seed):
@@ -58,22 +63,19 @@ def _tris(n, seed):
 _PERIODIC = np.array([[0.1, -0.2], [0.2, 1.1], [1.3, 0.7]], np.float32)
 
 CASES = {
-    "clamp": (lambda: omm.Texture([standard_circle(256, 256)],
-                                  omm.TextureFormat.FP32),
+    "clamp": (lambda: convert.texture([standard_circle(256, 256)], 1),
               _cfg(), lambda: _tris(8, 7), 7),
-    "wrap": (lambda: omm.Texture([sine_fp32(128, 128)],
-                                 omm.TextureFormat.FP32),
-             _cfg(addr_mode=omm.TextureAddressMode.Wrap),
-             lambda: [_PERIODIC], 7),
-    "mirror": (lambda: omm.Texture([sine_fp32(128, 128)],
-                                   omm.TextureFormat.FP32),
-               _cfg(addr_mode=omm.TextureAddressMode.Mirror),
-               lambda: [_PERIODIC[::-1].copy()], 7),
-    "unorm8_2mip": (lambda: omm.Texture(
-        [sine_unorm8(128, 128), sine_unorm8(128, 128)[::2, ::2]],
-        omm.TextureFormat.UNORM8),
-        _cfg(promotion=omm.UnknownStatePromotion.ForceOpaque),
-        lambda: _tris(4, 3), 6),
+    "wrap": (lambda: convert.texture([sine_fp32(128, 128)], 1),
+             _cfg(addr_mode=0), lambda: [_PERIODIC], 7),
+    "mirror": (lambda: convert.texture([sine_fp32(128, 128)], 1),
+               _cfg(addr_mode=1), lambda: [_PERIODIC[::-1].copy()], 7),
+    "unorm8_2mip": (lambda: convert.texture(
+        [sine_unorm8(128, 128), sine_unorm8(128, 128)[::2, ::2]], 0),
+        _cfg(promotion=1), lambda: _tris(4, 3), 6),
+    "wide_window": (lambda: convert.texture([standard_circle(256, 256)], 1),
+                    _cfg(), lambda: _tris(4, 4), 4),
+    "wrap_wide_window": (lambda: convert.texture([sine_fp32(128, 128)], 1),
+                         _cfg(addr_mode=0), lambda: [_PERIODIC], 4),
 }
 
 
@@ -89,6 +91,8 @@ def test_kernel_matches_twin(case, cuda):
     for mi in range(tex.mip_count):
         w, h = bp["mips"][mi]
         H, W = bp["HW"][mi]
+        if "wide" in case:  # more pairs per slot than a chunk
+            assert H * W > 32
         kw = dict(subdiv=subdiv, pad=bp["pads"][mi], ntx=bp["ntxs"][mi],
                   size=(w, h), period=bp["periods"][mi], H=H, W=W,
                   rcp=bp["rcps"][mi], alpha_cutoff=float(cfg.alpha_cutoff))
@@ -107,6 +111,37 @@ def test_kernel_matches_twin(case, cuda):
         assert ((ka + kb) > 1).any()
 
 
+def test_kernel_empty_blocks_and_checked_reads(cuda):
+    """Blocks of empty slots count 0, and a block whose tile does not
+    hold its slots' windows reads through the checked fetch (0.0
+    outside the region): the kernel equals the twin."""
+    tex = convert.texture([standard_circle(256, 256)], 1)
+    cfg, subdiv, tris = _cfg(), 6, _tris(3, 5)
+    pre = batch.precompute(tex, tris, subdiv,
+                           host._group_level(tex, tris, subdiv))
+    bp = batch.batch_planes(tex, cfg, pre, cuda)
+    uv_flat, ccw = batch.item_tables(np.stack(tris), cuda)
+    res = batch.run_stage_ab(bp, uv_flat, None, subdiv, True)
+    w, h = bp["mips"][0]
+    H, W = bp["HW"][0]
+    kw = dict(subdiv=subdiv, pad=bp["pads"][0], ntx=bp["ntxs"][0],
+              size=(w, h), period=None, H=H, W=W, rcp=bp["rcps"][0],
+              alpha_cutoff=0.5)
+    bt, ids = slot_stream(uv_flat, res["ids"], res["slots"][0],
+                          res["padMs"][0], subdiv=subdiv, w=w, h=h,
+                          pad=kw["pad"], ntx=kw["ntx"])
+    empty = torch.full((1, host.B), -1, dtype=torch.int32, device=cuda)
+    ids2 = torch.cat([empty, ids, empty, ids]).contiguous()
+    shifted = (bt + 1) % (kw["ntx"] ** 2)  # windows outside the region
+    bt2 = torch.cat([bt[:1], bt, bt[:1], shifted]).contiguous()
+    args = (bp["planes"][0], bt2, ids2, uv_flat, ccw)
+    ka, kb = exact.exact_counts(*args, **kw)
+    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+    assert torch.equal(ka, ta) and torch.equal(kb, tb)
+    n = ids.shape[0]
+    assert not ka[0].any() and not ka[n + 1].any() and not kb[0].any()
+
+
 @pytest.mark.parametrize("mode", list(omm.TextureAddressMode),
                          ids=lambda m: m.name)
 def test_bake_on_card_equals_cpu(mode, cuda):
@@ -116,22 +151,24 @@ def test_bake_on_card_equals_cpu(mode, cuda):
         base = rng.rand(2).astype(np.float32) * 0.2
         tris.append(np.array([base + [0.05, 0.1], base + [0.1, 0.7],
                               base + [0.7, 0.65]], np.float32))
-    desc = omm.BakeInputDesc(
-        texture=omm.Texture([standard_circle(256, 256)],
-                            omm.TextureFormat.FP32),
-        tex_coords=np.concatenate(tris), index_buffer=np.arange(
-            24, dtype=np.uint32), index_count=24, alpha_cutoff=0.5,
-        max_subdivision_level=7, dynamic_subdivision_scale=0.0,
-        runtime_sampler=omm.SamplerDesc(
-            addressing_mode=mode, filter=omm.TextureFilterMode.Linear,
-            border_alpha=0.7))
+    fields = dict(tex_coords=np.concatenate(tris), index_buffer=np.arange(
+        24, dtype=np.uint32), index_count=24, alpha_cutoff=0.5,
+        max_subdivision_level=7, dynamic_subdivision_scale=0.0)
+    planes = [standard_circle(256, 256)]
+    sampler = dict(addressing_mode=int(mode), filter=1, border_alpha=0.7)
     ot.reset_launches()
-    got = ot.bake(desc, device=cuda)
+    got = ot.bake(convert.bake_input(planes, 1, **sampler, **fields),
+                  device=cuda)
     assert ot.launches()["exact_classify"] > 0
-    want = ot.bake(dataclasses.replace(desc), device="cpu")
-    assert np.array_equal(got.array_data, want.array_data)
-    assert got.desc_array == want.desc_array
-    assert np.array_equal(got.index_buffer, want.index_buffer)
+    want = ot.bake(convert.bake_input(planes, 1, **sampler, **fields),
+                   device="cpu")
+    _assert_equal(got, want)
+
+
+def _assert_equal(a, b):
+    ra, rb = convert.result_to_numpy(a), convert.result_to_numpy(b)
+    for k in ra:
+        assert np.array_equal(np.asarray(ra[k]), np.asarray(rb[k])), k
 
 
 BENCH_TRIS, BENCH_SUBDIV = 256, 9
@@ -140,7 +177,8 @@ BENCH_TRIS, BENCH_SUBDIV = 256, 9
 def _bench_desc(n):
     """The benchmark workload (bench.py's _workload): a 1024^2 FP32 clamp
     texture with a circle of radius 0.4, and its first n of 256
-    triangles from RandomState(42), at subdivision 9."""
+    triangles from RandomState(42), at subdivision 9; as the JAX
+    package's descriptor and the port's, with the triangles."""
     w = h = 1024
     j, i = np.meshgrid(np.arange(h, dtype=np.float32),
                        np.arange(w, dtype=np.float32), indexing="ij")
@@ -156,29 +194,34 @@ def _bench_desc(n):
         tris.append(np.array([base + [0.05, 0.1], base + [0.1, 0.7],
                               base + [0.7, 0.65]], np.float32))
     tris = tris[:n]
-    desc = omm.BakeInputDesc(
-        texture=omm.Texture([plane], omm.TextureFormat.FP32),
-        tex_coords=np.concatenate(tris), index_buffer=np.arange(
-            3 * n, dtype=np.uint32), index_count=3 * n, alpha_cutoff=0.5,
+    fields = dict(tex_coords=np.concatenate(tris), index_buffer=np.arange(
+        3 * n, dtype=np.uint32), index_count=3 * n, alpha_cutoff=0.5,
         max_subdivision_level=BENCH_SUBDIV, dynamic_subdivision_scale=0.0)
-    return desc, tris
+    jdesc = omm.BakeInputDesc(
+        texture=omm.Texture([plane], omm.TextureFormat.FP32), **fields)
+    return jdesc, convert.bake_input([plane], 1, **fields), tris
 
 
 def test_bench_bake_matches_numpy_oracle(cuda):
-    """The whole benchmark bake on the card: the states of 8 fixed
-    triangles equal the numpy oracle (engine.resample_fine_item), as the
-    JAX package's parity gate checks them."""
-    from omm_tpu.bake import Options
+    """The whole benchmark bake on the card, its default device: the
+    states of 8 fixed triangles equal the numpy oracle
+    (engine.resample_fine_item), as the JAX package's parity gate checks
+    them."""
     from omm_tpu.stats import decode_states
-    from omm_tpu_torch.bake import _config
-    desc, tris = _bench_desc(BENCH_TRIS)
+    jdesc, tdesc, tris = _bench_desc(BENCH_TRIS)
     ot.reset_launches()
-    res = ot.bake(desc, device=cuda)
+    res = ot.bake(tdesc)
     assert ot.launches()["exact_classify"] > 0
-    cfg = _config(desc, Options.from_flags(desc.bake_flags))
+    cfg = engine.ResampleConfig(
+        addr_mode=omm.TextureAddressMode.Clamp,
+        filter=omm.TextureFilterMode.Linear, alpha_cutoff=0.5,
+        border_alpha=0.0, fmt=jdesc.format,
+        promotion=jdesc.unknown_state_promotion,
+        cutoff_gt=jdesc.alpha_cutoff_greater,
+        cutoff_le=jdesc.alpha_cutoff_less_equal)
     M = 4 ** BENCH_SUBDIV
     for k in range(0, BENCH_TRIS, BENCH_TRIS // 8):
-        want = engine.resample_fine_item(desc.texture, cfg, tris[k],
+        want = engine.resample_fine_item(jdesc.texture, cfg, tris[k],
                                          BENCH_SUBDIV,
                                          np.full(M, 3, np.uint8))
         idx = int(res.index_buffer[k])
@@ -193,17 +236,11 @@ def test_bench_bake_matches_numpy_oracle(cuda):
 
 
 def test_bench_bake16_equals_numpy_backend(cuda):
-    """The first 16 benchmark triangles baked on the card give a
-    BakeResult byte-equal to the JAX package's numpy backend."""
-    desc, _ = _bench_desc(16)
-    got = ot.bake(desc, device=cuda)
-    want = omm.bake(dataclasses.replace(desc), backend="numpy")
-    assert np.array_equal(got.array_data, want.array_data)
-    assert got.desc_array == want.desc_array
-    assert got.index_format == want.index_format
-    assert np.array_equal(got.index_buffer, want.index_buffer)
-    assert got.desc_array_histogram == want.desc_array_histogram
-    assert got.index_histogram == want.index_histogram
+    """The first 16 benchmark triangles baked on the card (the default
+    device) give a BakeResult byte-equal to the JAX package's numpy
+    backend."""
+    jdesc, tdesc, _ = _bench_desc(16)
+    _assert_equal(ot.bake(tdesc), omm.bake(jdesc, backend="numpy"))
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

@@ -22,7 +22,7 @@ from omm_tpu_torch import batch, host  # noqa: E402
 from omm_tpu_torch.kernels import exact  # noqa: E402
 
 from fixtures import sine_fp32, sine_unorm8, standard_circle  # noqa: E402
-from test_torch_twophase import _cfg, _tris  # noqa: E402
+from test_torch_twophase import _cfg, _tris, port_inputs  # noqa: E402
 
 B = host.B
 
@@ -69,6 +69,7 @@ def _jax_slot_stream(tex, cfg, tris, subdiv):
 
 
 def _port_state(tex, cfg, tris, subdiv, device="cpu"):
+    tex, cfg = port_inputs(tex, cfg)
     lg = host._group_level(tex, tris, subdiv)
     pre = batch.precompute(tex, tris, subdiv, lg)
     bp = batch.batch_planes(tex, cfg, pre, device)
@@ -162,39 +163,242 @@ HOST_CASES = dict(CASES, unorm8_2mip=(
     lambda: omm.Texture([sine_unorm8(64, 64), sine_unorm8(64, 64)[::2, ::2]],
                         omm.TextureFormat.UNORM8),
     _cfg(promotion=omm.UnknownStatePromotion.ForceOpaque),
-    lambda: _tris(2, seed=3), 5))
+    lambda: _tris(2, seed=3), 5), wide_window=(
+    lambda: omm.Texture([standard_circle(256, 256)], omm.TextureFormat.FP32),
+    _cfg(), lambda: _tris(2, seed=4), 4))
+
+
+def _host_counts(lib, args, kw):
+    """The g++ build's (above, below) for one slot stream."""
+    planeP, bt, ids_slot, uv6, ccw_t = args
+    ha = torch.empty(ids_slot.shape, dtype=torch.int32)
+    hb = torch.empty_like(ha)
+    Pw, Ph = kw["period"] or (0, 0)
+    rc = lib.omm_exact_host(
+        planeP.data_ptr(), planeP.shape[0], planeP.shape[1],
+        bt.data_ptr(), ids_slot.data_ptr(), ids_slot.shape[0],
+        uv6.data_ptr(), ccw_t.data_ptr(), kw["subdiv"], kw["pad"], kw["ntx"],
+        kw["size"][0], kw["size"][1], Pw, Ph, kw["H"], kw["W"],
+        float(np.float32(kw["rcp"][0])), float(np.float32(kw["rcp"][1])),
+        float(np.float32(kw["alpha_cutoff"])), ha.data_ptr(),
+        hb.data_ptr())
+    assert rc == 0
+    return ha, hb
+
+
+def _host_library():
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    from omm_tpu_torch.kernels.build import host_library
+    return host_library()
 
 
 @pytest.mark.parametrize("case", sorted(HOST_CASES))
 def test_host_build_of_kernel_math_matches_twin(case):
-    """csrc/exact_math.cuh compiled by g++, looping over blocks and
-    slots as the CUDA kernel does, equals the torch twin bit for bit."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    from omm_tpu_torch.kernels.build import host_library
-    lib = host_library()
+    """csrc/exact_math.cuh compiled by g++, walking each block in the
+    CUDA kernel's order (geometry, mask compaction, corner tests, edge
+    tests, seeds), equals the torch twin bit for bit."""
+    lib = _host_library()
     mk_tex, cfg, mk_tris, subdiv = HOST_CASES[case]
     tex, tris = mk_tex(), mk_tris()
     bp, uv_flat, ccw = _port_state(tex, cfg, tris, subdiv)
     for mi in range(tex.mip_count):
-        (planeP, bt, ids_slot, uv6, ccw_t), kw = _slot_stream(
-            bp, uv_flat, ccw, subdiv, mi, cfg)
-        ta, tb = exact.exact_counts_torch(planeP, bt, ids_slot, uv6, ccw_t,
-                                          **kw)
-        ha = torch.empty_like(ta)
-        hb = torch.empty_like(tb)
-        Pw, Ph = kw["period"] or (0, 0)
-        rc = lib.omm_exact_host(
-            planeP.data_ptr(), planeP.shape[0], planeP.shape[1],
-            bt.data_ptr(), ids_slot.data_ptr(), ids_slot.shape[0],
-            uv6.data_ptr(), ccw_t.data_ptr(), subdiv, kw["pad"], kw["ntx"],
-            kw["size"][0], kw["size"][1], Pw, Ph, kw["H"], kw["W"],
-            float(np.float32(kw["rcp"][0])), float(np.float32(kw["rcp"][1])),
-            float(np.float32(kw["alpha_cutoff"])), ha.data_ptr(),
-            hb.data_ptr())
-        assert rc == 0
+        args, kw = _slot_stream(bp, uv_flat, ccw, subdiv, mi, cfg)
+        if case == "wide_window":  # more pairs per slot than a chunk
+            assert kw["H"] * kw["W"] > 32
+        ta, tb = exact.exact_counts_torch(*args, **kw)
+        ha, hb = _host_counts(lib, args, kw)
         assert torch.equal(ha, ta) and torch.equal(hb, tb)
         assert ((ta + tb) > 1).any()
+
+
+def test_host_build_empty_blocks_and_tile_runs():
+    """Blocks of empty slots (first, middle, last) and runs of blocks
+    that share a tile and switch tiles: the g++ build equals the twin,
+    and empty slots count 0."""
+    lib = _host_library()
+    tex = omm.Texture([standard_circle(128, 128)], omm.TextureFormat.FP32)
+    cfg, subdiv = _cfg(), 6
+    bp, uv_flat, ccw = _port_state(tex, cfg, _tris(3, seed=5), subdiv)
+    (planeP, bt, ids_slot, uv6, ccw_t), kw = _slot_stream(
+        bp, uv_flat, ccw, subdiv, 0, cfg)
+    btn = bt.numpy()
+    assert (btn[1:] == btn[:-1]).any() and (btn[1:] != btn[:-1]).any()
+    empty = torch.full((1, B), -1, dtype=torch.int32)
+    h = ids_slot.shape[0] // 2
+    ids2 = torch.cat([empty, ids_slot[:h], empty, ids_slot[h:], empty])
+    bt2 = torch.cat([torch.tensor([0], dtype=torch.int32), bt[:h],
+                     bt[h - 1:h], bt[h:], torch.tensor([5],
+                                                       dtype=torch.int32)])
+    args = (planeP, bt2.contiguous(), ids2.contiguous(), uv6, ccw_t)
+    ta, tb = exact.exact_counts_torch(*args, **kw)
+    ha, hb = _host_counts(lib, args, kw)
+    assert torch.equal(ha, ta) and torch.equal(hb, tb)
+    for r in (0, h + 1, ids2.shape[0] - 1):
+        assert not ta[r].any() and not tb[r].any()
+    assert ((ta + tb) > 1).any()
+
+
+def _brute_work(args, kw):
+    """exact_work's counts by a scalar walk over every slot and window
+    texel in np.float32, stopping where the kernel's loops stop."""
+    planeP, bt, ids_slot, uv6, ccw = args
+    f = np.float32
+    H, W = kw["H"], kw["W"]
+    TSA = exact.TILE + max(H, W) + 2
+    plane = planeP.numpy()
+    Hp, Wp = plane.shape
+    ids = ids_slot.reshape(-1)
+    bts = bt.repeat_interleave(B)
+    g = exact.derive_slot_geometry(ids, uv6, ccw, bts, subdiv=kw["subdiv"],
+                                   pad=kw["pad"], ntx=kw["ntx"],
+                                   size=kw["size"], period=kw["period"])
+    muv = [r.numpy() for r in g[0]]
+    qn = [r.numpy() for r in g[1]]
+    x0, y0, x1, y1, ox, oy = (t.numpy() for t in g[2:8])
+    val = g[10].numpy()
+    sizef = (f(kw["size"][0]), f(kw["size"][1]))
+    inv = (f(kw["rcp"][0]), f(kw["rcp"][1]))
+    cut = f(kw["alpha_cutoff"])
+    out = dict.fromkeys(("slots", "window_texels", "mask_edges", "covered",
+                         "level_line", "edge_tests", "hyperbola", "roots"), 0)
+    read = set()
+
+    def zero(v, e):
+        return v < f(e) and v > -f(e)
+
+    def length(dx, dy):
+        return np.sqrt(f(dx * dx + dy * dy))
+
+    def point_in(t, px, py):
+        p0x, p0y, p1x, p1y, p2x, p2y = t
+        s_ = (p0x - p2x) * (py - p2y) - (p0y - p2y) * (px - p2x)
+        u_ = (p1x - p0x) * (py - p0y) - (p1y - p0y) * (px - p0x)
+        if (s_ < 0) != (u_ < 0) and s_ != 0 and u_ != 0:
+            return False
+        d_ = (p2x - p1x) * (py - p1y) - (p2y - p1y) * (px - p1x)
+        return d_ == 0 or (d_ < 0) == (s_ + u_ <= 0)
+
+    def edge(p0x, p0y, p1x, p1y, ha, hb, hc, hd):
+        """(hit, hyperbola branch, real roots)."""
+        if p0x > p1x:
+            p0x, p0y, p1x, p1y = p1x, p1y, p0x, p0y
+        elen = length(p1x - p0x, p1y - p0y)
+
+        def on(px, py):
+            if not (px >= 0 and px <= 1 and py >= 0 and py <= 1):
+                return False
+            return zero(length(px - p0x, py - p0y)
+                        + length(px - p1x, py - p1y) - elen, 1e-5)
+        kd = p1x - p0x
+        if zero(kd, 1e-6):
+            c0v = hd * p0x + hc
+            if zero(c0v, 1e-6):
+                return False, False, False
+            return on(p0x, -(ha + hb * p0x) / c0v), False, False
+        k = (p1y - p0y) / kd
+        m = p1y - p1x * k
+        c0, c1, c2 = hd * k, hc * k + hd * m + hb, ha + hc * m
+        if zero(c0, 1e-6):
+            if zero(c1, 1e-6):
+                return False, False, False
+            lx = -c2 / c1
+            return on(lx, k * lx + m), False, False
+        inner = c1 * c1 - (f(4) * c0) * c2
+        if not inner > 0:
+            return False, True, False
+        root = np.sqrt(inner)
+        ax = f(0.5) * (-c1 + root) / c0
+        bx = f(0.5) * (-c1 - root) / c0
+        return on(ax, k * ax + m) or on(bx, k * bx + m), True, True
+
+    for i in np.flatnonzero(val):
+        out["slots"] += 1
+        yb = int(bts[i]) // kw["ntx"] * exact.TILE
+        xb = int(bts[i]) % kw["ntx"] * exact.TILE
+
+        def fetch(ry, rx):
+            gy, gx = yb + ry, xb + rx
+            if 0 <= ry < TSA and 0 <= rx < TSA and gy < Hp and gx < Wp:
+                read.add((gy, gx))
+                return plane[gy, gx]
+            return f(0)
+        for r in range(H + 2):  # the window the slot reads
+            for c in range(W + 2):
+                fetch(oy[i] + r, ox[i] + c)
+        tri = [m[i] for m in muv]
+        for dy in range(H):
+            for dx in range(W):
+                out["window_texels"] += 1
+                px, py = x0[i] + dx, y0[i] + dy
+                inn = px < x1[i] and py < y1[i]
+                for e in range(3):
+                    if not inn:
+                        break
+                    out["mask_edges"] += 1
+                    n_ = (e + 1) % 3
+                    nx = qn[2 * n_ + 1][i] - qn[2 * e + 1][i]
+                    ny = qn[2 * e][i] - qn[2 * n_][i]
+                    cc = -(nx * qn[2 * e][i] + ny * qn[2 * e + 1][i])
+                    ev = (nx * f(px) + ny * f(py)) + cc
+                    inn = (ev + min(nx, f(0)) + min(ny, f(0))) < 0
+                if not inn:
+                    continue
+                out["covered"] += 1
+                q = [fetch(oy[i] + dy + a, ox[i] + dx + b)
+                     for a, b in ((0, 0), (1, 0), (1, 1), (0, 1))]
+                pfx, pfy = f(px) + f(0.5), f(py) + f(0.5)
+                ix, iy = pfx * inv[0], pfy * inv[1]
+                ins = [point_in(tri, ix, iy), point_in(tri, ix, iy + inv[1]),
+                       point_in(tri, ix + inv[0], iy + inv[1]),
+                       point_in(tri, ix + inv[0], iy)]
+                op = [cut < v for v in q]
+                if any(a and o for a, o in zip(ins, op)) and \
+                        any(a and not o for a, o in zip(ins, op)):
+                    continue
+                b_, c_ = q[3] - q[0], q[1] - q[0]
+                d_ = q[0] + q[2] - q[1] - q[3]
+                if zero(b_, 1e-6) and zero(c_, 1e-6) and zero(d_, 1e-6):
+                    continue
+                out["level_line"] += 1
+                for e in range(3):
+                    n_ = (e + 1) % 3
+                    hit, hyp, roots = edge(
+                        sizef[0] * tri[2 * e] - pfx,
+                        sizef[1] * tri[2 * e + 1] - pfy,
+                        sizef[0] * tri[2 * n_] - pfx,
+                        sizef[1] * tri[2 * n_ + 1] - pfy,
+                        q[0] - cut, b_, c_, d_)
+                    out["edge_tests"] += 1
+                    out["hyperbola"] += hyp
+                    out["roots"] += roots
+                    if hit:
+                        break
+    out["texels_read"] = len(read)
+    return out
+
+
+@pytest.mark.parametrize("case", ["clamp", "wide_window", "wrap"])
+def test_exact_work_matches_brute_force(case):
+    """exact_work's counts on a small stream equal a scalar walk of the
+    kernel's loops; its ops and bytes follow from them."""
+    mk_tex, cfg, mk_tris, subdiv = HOST_CASES[case]
+    tex, tris = mk_tex(), mk_tris()
+    bp, uv_flat, ccw = _port_state(tex, cfg, tris[:1], subdiv)
+    args, kw = _slot_stream(bp, uv_flat, ccw, subdiv, 0, cfg)
+    args = (args[0], args[1][:3].contiguous(), args[2][:3].contiguous(),
+            *args[3:])
+    with np.errstate(all="ignore"):
+        want = _brute_work(args, kw)
+    got = exact.exact_work(*args, **kw)
+    assert {k: got[k] for k in want} == want
+    assert want["edge_tests"] > 0 and want["covered"] > want["level_line"]
+    assert got["ops"] == sum(exact.OPS[k] * got[k] for k in exact.OPS)
+    nblk = args[2].shape[0]
+    assert got["bytes"] == (3 * nblk * B + nblk + 7 * args[3].shape[0]
+                            + got["texels_read"]) * 4
+    ms, by = exact.bound(got)
+    assert ms > 0 and by in ("operations", "bytes")
 
 
 def test_wrapper_checks_and_cpu_route():

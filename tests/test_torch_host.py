@@ -1,5 +1,7 @@
 """omm_tpu_torch.host: each numpy copy equals its original in the JAX
-package (kernels/twophase.py, kernels/mxu_classify.py), exactly."""
+package (kernels/twophase.py, kernels/mxu_classify.py), exactly.  The
+port's copies get the port's own textures and configurations, built from
+the same numpy planes and enum values."""
 import numpy as np
 import pytest
 
@@ -11,6 +13,8 @@ from omm_tpu import engine  # noqa: E402
 from omm_tpu.kernels import mxu_classify as mx  # noqa: E402
 from omm_tpu.kernels import twophase as tp  # noqa: E402
 from omm_tpu_torch import host  # noqa: E402
+
+from test_torch_twophase import port_inputs  # noqa: E402
 
 MODES = [omm.TextureAddressMode.Wrap, omm.TextureAddressMode.Mirror,
          omm.TextureAddressMode.Clamp, omm.TextureAddressMode.Border,
@@ -49,7 +53,8 @@ def test_padded_plane(mode, wh):
     for pad in (3, 70):
         for period in (None, tp._period_for(tex, mode, 0)):
             want = mx.padded_plane(tex, 0, pad, mode, 0.25, period=period)
-            got = host.padded_plane(tex, 0, pad, mode, 0.25, period=period)
+            got = host.padded_plane(port_inputs(tex, _cfg(mode))[0], 0, pad,
+                                    mode, 0.25, period=period)
             assert got.dtype == want.dtype and got.shape == want.shape
             assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
@@ -57,29 +62,31 @@ def test_padded_plane(mode, wh):
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: m.name)
 def test_period_for(mode):
     tex = _tex(24, 40, mips=2)
+    ptex, pcfg = port_inputs(tex, _cfg(mode))
     for mip in range(2):
-        assert host._period_for(tex, mode, mip) == tp._period_for(
-            tex, mode, mip)
+        assert host._period_for(ptex, pcfg.addr_mode, mip) == \
+            tp._period_for(tex, mode, mip)
 
 
 def test_span_windows_and_levels():
     tex = _tex(64, 48, mips=2)
+    ptex = port_inputs(tex, _cfg(omm.TextureAddressMode.Clamp))[0]
     uv = _tris(40, 3, scale=2.0)
     for level in range(0, 9):
         for mip in range(2):
-            g = host._span_windows(tex, uv, level, mip)
+            g = host._span_windows(ptex, uv, level, mip)
             w = tp._span_windows(tex, uv, level, mip)
             assert np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
-            assert host._span_window(tex, uv[0], level, mip) == \
+            assert host._span_window(ptex, uv[0], level, mip) == \
                 tp._span_window(tex, uv[0], level, mip)
     for subdiv in range(2, 10):
         for k in (1, 5, 40):
             tris = list(uv[:k])
-            lg = host._group_level(tex, tris, subdiv)
+            lg = host._group_level(ptex, tris, subdiv)
             assert lg == tp._group_level(tex, tris, subdiv)
-            assert host._descend_levels(tex, tris, subdiv, lg) == \
+            assert host._descend_levels(ptex, tris, subdiv, lg) == \
                 tp._descend_levels(tex, tris, subdiv, lg)
-    assert host._group_level(tex, [], 5) == tp._group_level(tex, [], 5)
+    assert host._group_level(ptex, [], 5) == tp._group_level(tex, [], 5)
 
 
 def test_skip_final_p():
@@ -107,9 +114,10 @@ def test_fast_path_mask_and_ok(mode, wh):
                     _cfg(mode, filter=omm.TextureFilterMode.Nearest),
                     _cfg(mode, disable_level_line=True)):
             lg = tp._group_level(tex, list(uv), subdiv)
-            got = host._fast_path_mask(tex, cfg, uv, subdiv, lg)
+            ptex, pcfg = port_inputs(tex, cfg)
+            got = host._fast_path_mask(ptex, pcfg, uv, subdiv, lg)
             want = tp._fast_path_mask(tex, cfg, uv, subdiv, lg)
             assert np.array_equal(got, want)
             for k in range(0, len(uv), 5):
-                assert host._fast_path_ok(tex, cfg, uv[k], subdiv, lg) == \
+                assert host._fast_path_ok(ptex, pcfg, uv[k], subdiv, lg) == \
                     tp._fast_path_ok(tex, cfg, uv[k], subdiv, lg)

@@ -1,4 +1,4 @@
-"""omm_tpu_torch.bird and .levelline against the JAX package's numpy
+"""omm_tpu_torch.bird_torch and .levelline against the JAX package's numpy
 and jnp functions: elementwise, bit for bit, on fuzzed fp32 input."""
 import itertools
 
@@ -14,7 +14,7 @@ import omm_tpu as omm  # noqa: E402
 from omm_tpu import bird  # noqa: E402
 from omm_tpu.kernels import levelline as ll  # noqa: E402
 from omm_tpu.kernels import pallas_classify as pk  # noqa: E402
-from omm_tpu_torch import bird as tbird  # noqa: E402
+from omm_tpu_torch import bird_torch as tbird  # noqa: E402
 from omm_tpu_torch import levelline as tll  # noqa: E402
 
 

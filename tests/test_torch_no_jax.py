@@ -1,25 +1,33 @@
-"""omm_tpu_torch runs without jax.
+"""omm_tpu_torch runs without jax and without the JAX package.
 
-A subprocess installs an import hook that makes every `import jax`
-raise, then bakes a small fast-path descriptor on the CPU through
-omm_tpu_torch.bake; the bake must succeed and jax must never enter
-sys.modules.  This cannot be checked in-process: tests/conftest.py
-imports jax."""
+A subprocess installs an import hook that makes every import of jax,
+jaxlib or omm_tpu raise, then builds a descriptor with the port's own
+types and bakes it on the CPU through omm_tpu_torch.bake; the bake must
+succeed and none of the blocked modules may enter sys.modules.  This
+cannot be checked in-process: tests/conftest.py imports jax.  An AST
+scan checks the same of every source file of the port and of
+chip_smoke.py, including imports on paths the bake does not take."""
+import ast
 import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "omm_tpu")
 
 SCRIPT = r"""
 import importlib.abc
 import sys
 
+BLOCKED = %r
+
 
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked in this process")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked in this process")
         return None
 
 
@@ -28,26 +36,25 @@ sys.path.insert(0, %r)
 import numpy as np
 import torch
 torch.set_num_threads(2)
-import omm_tpu as omm
 import omm_tpu_torch as ot
 
 j, i = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
 alpha = (np.hypot(i - 64, j - 64) < 40).astype(np.float32)
-tex = omm.Texture([alpha], omm.TextureFormat.FP32)
+tex = ot.Texture([alpha], ot.TextureFormat.FP32)
 tc = np.array([[0.05, 0.1], [0.1, 0.7], [0.7, 0.65],
                [0.2, 0.15], [0.25, 0.8], [0.85, 0.7]], np.float32)
-desc = omm.BakeInputDesc(texture=tex, tex_coords=tc,
-                         index_buffer=np.arange(6, dtype=np.uint32),
-                         index_count=6, alpha_cutoff=0.5,
-                         max_subdivision_level=5,
-                         dynamic_subdivision_scale=0.0)
+desc = ot.BakeInputDesc(texture=tex, tex_coords=tc,
+                        index_buffer=np.arange(6, dtype=np.uint32),
+                        index_count=6, alpha_cutoff=0.5,
+                        max_subdivision_level=5,
+                        dynamic_subdivision_scale=0.0)
 res = ot.bake(desc, device="cpu")
+assert isinstance(res, ot.BakeResult)
 assert len(res.desc_array) == 2, res.desc_array
 assert ot.launches() == {"exact_classify": 0}
-assert "jax" not in sys.modules
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
-""" % (REPO,)
+""" % (BLOCKED, REPO)
 
 
 def test_port_bakes_without_jax():
@@ -55,3 +62,39 @@ def test_port_bakes_without_jax():
                        text=True, timeout=240)
     assert p.returncode == 0, p.stderr[-3000:]
     assert p.stdout.strip().endswith("OK"), p.stdout
+
+
+def _sources():
+    pkg = os.path.join(REPO, "omm_tpu_torch")
+    out = []
+    for root, _, files in os.walk(pkg):
+        out += [os.path.relpath(os.path.join(root, f), REPO)
+                for f in files if f.endswith(".py")]
+    return sorted(out) + ["chip_smoke.py", "tools/profile_torch_bake.py"]
+
+
+def _imported(tree):
+    """Top-level names of every module an import statement names
+    (relative imports count as the port's own)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources())
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = sorted({m for m in _imported(tree) if m in BLOCKED})
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_scan_sees_blocked_imports():
+    """The scan is not vacuous: it finds each form of import."""
+    src = ("import jax.numpy as jnp\nfrom omm_tpu import bake\n"
+           "def f():\n    import jaxlib\n    from . import omm_tpu\n")
+    assert sorted(set(_imported(ast.parse(src)))) == ["jax", "jaxlib",
+                                                      "omm_tpu"]

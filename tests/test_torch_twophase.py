@@ -1,7 +1,10 @@
 """omm_tpu_torch's stage programs against the JAX package's
 kernels/twophase.py, stage by stage, on one batch per case.  All
 comparisons are exact; the JAX exact stage runs the Pallas kernel in
-interpret mode."""
+interpret mode.  The port gets its own texture and configuration,
+built from the same numpy planes and enum values (`port_inputs`)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -13,7 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 import omm_tpu as omm  # noqa: E402
 from omm_tpu import engine, native  # noqa: E402
 from omm_tpu.kernels import twophase as tp  # noqa: E402
-from omm_tpu_torch import batch, host, planes  # noqa: E402
+from omm_tpu_torch import batch, convert, host, planes  # noqa: E402
+from omm_tpu_torch import engine as tengine  # noqa: E402
+from omm_tpu_torch import types as ttypes  # noqa: E402
 from omm_tpu_torch.twophase import stage_d  # noqa: E402
 
 from fixtures import sine_unorm8, standard_circle  # noqa: E402
@@ -31,6 +36,22 @@ def _cfg(**over):
                 cutoff_le=omm.OpacityState.Transparent)
     base.update(over)
     return engine.ResampleConfig(**base)
+
+
+_ENUMS = dict(addr_mode=ttypes.TextureAddressMode,
+              filter=ttypes.TextureFilterMode, fmt=ttypes.Format,
+              promotion=ttypes.UnknownStatePromotion,
+              cutoff_gt=ttypes.OpacityState, cutoff_le=ttypes.OpacityState)
+
+
+def port_inputs(tex, cfg):
+    """The port's Texture and ResampleConfig for the JAX package's: the
+    same numpy planes and the same enum values."""
+    ptex = convert.texture(tex.mips, int(tex.format), int(tex.flags),
+                           tex.alpha_cutoff)
+    vals = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return ptex, tengine.ResampleConfig(**{
+        k: _ENUMS[k](int(v)) if k in _ENUMS else v for k, v in vals.items()})
 
 
 def _tris(n, seed=7):
@@ -101,9 +122,10 @@ def staged(request):
         cutoff_gt=cfg.cutoff_gt, cutoff_le=cfg.cutoff_le))
 
     uvs = [t for t, _ in items]
-    pre = batch.precompute(tex, uvs, subdiv,
-                           host._group_level(tex, uvs, subdiv))
-    bp = batch.batch_planes(tex, cfg, pre, "cpu")
+    ptex, pcfg = port_inputs(tex, cfg)
+    pre = batch.precompute(ptex, uvs, subdiv,
+                           host._group_level(ptex, uvs, subdiv))
+    bp = batch.batch_planes(ptex, pcfg, pre, "cpu")
     uv_flat, ccw = batch.item_tables(np.stack(uvs), "cpu")
     active = None
     if not all_active:
@@ -111,12 +133,12 @@ def staged(request):
             [np.ones(M, bool) if st is None else st == UO
              for _, st in items]))
     pres = batch.run_stage_ab(bp, uv_flat, active, subdiv, all_active)
-    pcounts = [batch.run_stage_c(bp, pres, mi, uv_flat, ccw, subdiv, cfg)
-               for mi in range(tex.mip_count)]
+    pcounts = [batch.run_stage_c(bp, pres, mi, uv_flat, ccw, subdiv, pcfg)
+               for mi in range(ptex.mip_count)]
     ppacked = stage_d(pres["sides"], pres["nodes"], pres["ids"], pcounts,
-                      T=T, subdiv=subdiv, levels=bp["levels"], fmt=cfg.fmt,
-                      promotion=cfg.promotion, cutoff_gt=cfg.cutoff_gt,
-                      cutoff_le=cfg.cutoff_le).numpy()
+                      T=T, subdiv=subdiv, levels=bp["levels"], fmt=pcfg.fmt,
+                      promotion=pcfg.promotion, cutoff_gt=pcfg.cutoff_gt,
+                      cutoff_le=pcfg.cutoff_le).numpy()
     return dict(tex=tex, cfg=cfg, items=items, subdiv=subdiv, M=M, T=T,
                 ctx=ctx, jres=jres, meta=meta, m=m, K=K, counts=counts,
                 jpacked=jpacked, bp=bp, pres=pres, pcounts=pcounts,

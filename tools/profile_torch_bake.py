@@ -1,13 +1,22 @@
 """Where the time of an omm_tpu_torch bake goes, on one CUDA card.
 
     python tools/profile_torch_bake.py [--trace PATH]
+    python tools/profile_torch_bake.py --exact-vs DIR [DIR ...] [--rounds N]
 
 Runs the benchmark workload (chip_smoke.py's: 1024^2 FP32 clamp
 texture, 256 triangles, subdivision 9) through omm_tpu_torch.bake on
 cuda:0: 2 warm-up bakes, then one bake under torch.profiler.  Prints the
 wall seconds of the profiled bake, host time per stage label (omm.*),
-device time per kernel, and the device's busy and idle shares of the
-bake's wall time.  With --trace, the Chrome trace is written to PATH.
+the host operations with the most self CPU time, device time per
+kernel, and the device's busy and idle shares of the bake's wall time.  With --trace, the Chrome trace is written to PATH.
+
+With --exact-vs it instead times the exact kernels built from each DIR
+(a csrc/ directory with an exact_classify.cu of the same launch
+interface, such as an earlier commit's) against the package's own, on
+the first 48-triangle batch of the workload: each must equal the torch
+twin, then N rounds in turns (the others, this, this, the others in
+reverse), each taking a kernel's device time from torch.profiler over 50
+launches and its time by CUDA events over bursts of launches.
 """
 import argparse
 import os
@@ -21,7 +30,13 @@ sys.path.insert(0, ROOT)
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write the Chrome trace to this file")
+    ap.add_argument("--exact-vs", metavar="DIR", nargs="+",
+                    help="time the exact kernels built from each DIR "
+                    "against this one instead of profiling a bake")
+    ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
+    if args.exact_vs:
+        return compare_exact(args.exact_vs, args.rounds)
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -58,9 +73,18 @@ def main():
         t = e.self_device_time_total
         rows.append((t, e.key, e.count))
         dev_us += t
+    print("host ops by self CPU time (ms):")
+    host = [e for e in ev if e.device_type != DeviceType.CUDA
+            and not e.key.startswith("omm.")]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        print(f"  {e.self_cpu_time_total / 1e3:10.3f} x{e.count:<5d} "
+              f"{e.key[:80]}")
     print("device time per kernel (ms):")
     for t, k, n in sorted(rows, reverse=True)[:15]:
         print(f"  {t / 1e3:10.3f} x{n:<5d} {k[:90]}")
+    for t, k, n in rows:
+        if "exact_classify" in k:
+            print(f"exact kernel: {t / 1e3:.4f} ms device in {n} launches")
     print(f"device busy {dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall: "
           f"busy share {dev_us / 1e6 / wall:.4f}, idle share "
           f"{1 - dev_us / 1e6 / wall:.4f}")
@@ -68,6 +92,78 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)
         prof.export_chrome_trace(args.trace)
+
+
+def compare_exact(other_dirs, rounds):
+    import subprocess
+
+    import torch
+
+    import chip_smoke
+    from omm_tpu_torch.bake import Options, _config, setup_work_items
+    from omm_tpu_torch.kernels import build, exact
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(card)
+    dev = torch.device("cuda", 0)
+    libs = {"this": build.cuda_library()}
+    for d in other_dirs:
+        libs[d] = build.cuda_library(d)
+    for name in libs:
+        tag = build.cuda_library_name(None if name == "this" else name)
+        for line in build.BUILD_INFO.get(tag, {}).get("log", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name} ptxas: {line.strip()}")
+    tex, uv_tris = chip_smoke._workload()
+    desc = chip_smoke._desc(tex, uv_tris)
+    opts = Options.from_flags(desc.bake_flags)
+    cfg = _config(desc, opts)
+    uvs = [it.uv_tri for it in setup_work_items(desc, opts)]
+    args, kw, what = chip_smoke.slot_streams(tex, uvs, cfg, chip_smoke.SUBDIV,
+                                             chip_smoke.BATCH, dev)
+    print(f"stream: {what}")
+    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+    nblk = args[2].shape[0]
+    outs = {}
+    for name, lib in libs.items():
+        a = torch.empty((nblk, exact.B), dtype=torch.int32, device=dev)
+        b = torch.empty_like(a)
+        outs[name] = (lib, a, b)
+        exact.launch(lib, *args, a, b, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, ta) and torch.equal(b, tb)):
+            raise SystemExit(f"the {name} kernel differs from the twin")
+    work = exact.exact_work(*args, **kw)
+    bound_ms, bound_by = exact.bound(work)
+    print(f"bound {bound_ms:.6f} ms ({bound_by}); ops {work['ops']} bytes "
+          f"{work['bytes']}")
+    res = {name: [] for name in libs}
+    order = list(other_dirs) + ["this", "this"] + list(other_dirs)[::-1]
+    for r in range(rounds):
+        for name in order:
+            lib, a, b = outs[name]
+
+            def fn():
+                exact.launch(lib, *args, a, b, **kw)
+
+            d = chip_smoke.device_ms(fn, "exact_classify")
+            e = chip_smoke._cuda_ms(fn)
+            res[name].append((d, e))
+            print(f"round {r} {name}: device {d} ms, events {e:.6f} ms",
+                  flush=True)
+    for name, v in res.items():
+        d = sorted(x[0] for x in v if x[0] is not None)
+        e = sorted(x[1] for x in v)
+        if d:
+            print(f"{name}: device ms min {d[0]:.6f} median "
+                  f"{d[len(d) // 2]:.6f}; at {bound_ms / d[0]:.4f} of the "
+                  f"bound")
+        print(f"{name}: event ms min {e[0]:.6f} median {e[len(e) // 2]:.6f}")
 
 
 if __name__ == "__main__":
