@@ -31,10 +31,28 @@ and prints no result line):
              BakeResult of the first 16 triangles baked on the card is
              byte-equal to the port's bake of them on the CPU, where the
              exact stage runs its plain torch twin
-  6. timing  the kernel's device time on the bench stream (torch.profiler
+  6. nearest the benchmark workload with the nearest filter: 2 warm-ups,
+             5 timed bakes, byte-equal to one another, the first 16
+             triangles on the card byte-equal to the CPU bake; the
+             micro-triangles phase-1 resolved and those left to the
+             survivors pass
+  7. mixed   one descriptor of 312 triangles over every linear route:
+             the 256 benchmark triangles at subdivision 9 (fast path,
+             exact kernel), 16 line triangles (collinear UVs from
+             RandomState(43)) and 16 fp32-thin slivers at 9, 8 triangles
+             at level 0 and 8 at level 1, 8 texture-spanning triangles
+             at level 3 (windows of ~128 texels); timed like phase 6,
+             every route must take items, and a subset with items of
+             every route is byte-equal on the card and on the CPU
+  8. aabb    16 triangles with DisableLevelLineIntersection |
+             EnableAABBTesting, byte-equal on the card and on the CPU
+  9. timing  the kernel's device time on the bench stream (torch.profiler
              over 50 launches) and its share of the bound; last, so that
              the profiler's tracing does not reach the timed bakes
 
+Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
+work items per route) are set to 0 just before its timed bakes and read
+just after.
 jax and the JAX package omm_tpu are blocked from import for the whole
 run: the port must not need them.  Everything is reached through
 omm_tpu_torch.  The checks against the JAX package's numpy oracle run
@@ -105,6 +123,88 @@ def _desc(tex, uv_tris):
         dynamic_subdivision_scale=0.0)
 
 
+def _nearest_desc(tex, uv_tris):
+    """The benchmark descriptor with the nearest filter."""
+    import omm_tpu_torch as ot
+    desc = _desc(tex, uv_tris)
+    desc.runtime_sampler.filter = ot.types.TextureFilterMode.Nearest
+    return desc
+
+
+def _mixed_tris(uv_tris):
+    """The mixed mesh: (triangles, subdivision level of each, route
+    group of each) for the benchmark triangles at SUBDIV, 16 line
+    triangles and 16 fp32-thin slivers at SUBDIV, 8 triangles at level
+    0, 8 at level 1 and 8 texture-spanning ones at level 3."""
+    from omm_tpu_torch import geom
+    rng = np.random.RandomState(43)
+    lines, slivers = [], []
+    for _ in range(16):
+        # on a 1/1024 grid, so that the fp32 area is exactly 0
+        p = rng.randint(100, 900, 2).astype(np.float32) / np.float32(1024)
+        d = rng.randint(-60, 61, 2).astype(np.float32) / np.float32(1024)
+        lines.append(np.array([p, p + 2 * d, p + d], np.float32))
+    for _ in range(16):
+        b = rng.rand(2).astype(np.float32) * np.float32(0.35)
+        slivers.append(np.array([b, b + [0.6, 1e-7], b + [0.3, 0.0]],
+                                np.float32))
+    low = []
+    for _ in range(16):
+        b = rng.rand(2).astype(np.float32) * np.float32(0.2)
+        low.append(np.array([b + [0.05, 0.1], b + [0.1, 0.7],
+                             b + [0.7, 0.65]], np.float32))
+    wide = []
+    for _ in range(8):
+        j = rng.rand(3, 2).astype(np.float32) * np.float32(0.02)
+        wide.append((np.array([[0.02, 0.03], [0.97, 0.1], [0.4, 0.95]],
+                              np.float32) + j).astype(np.float32))
+    if not all(geom.is_degenerate(t) for t in lines):
+        raise SystemExit("a mixed-mesh line triangle is not degenerate")
+    if any(geom.is_degenerate(t) or geom.winding_stable(t, SUBDIV)
+           for t in slivers):
+        raise SystemExit("a mixed-mesh sliver is winding-stable")
+    tris = list(uv_tris) + lines + slivers + low + wide
+    levels = [SUBDIV] * (len(uv_tris) + 32) + [0] * 8 + [1] * 8 + [3] * 8
+    groups = (["bench"] * len(uv_tris) + ["line"] * 16 + ["sliver"] * 16
+              + ["level0"] * 8 + ["level1"] * 8 + ["wide"] * 8)
+    return tris, levels, groups
+
+
+def _mixed_desc(tex, tris, levels):
+    desc = _desc(tex, tris)
+    desc.subdivision_levels = np.array(levels, np.uint8)
+    return desc
+
+
+WORKLOADS = ("bench", "nearest", "mixed")
+
+
+def _workload_desc(name, tex, uv_tris):
+    """(descriptor, micro-triangles) of a workload on the benchmark
+    texture and triangles: "bench", "nearest" (the nearest filter) or
+    "mixed" (the 312-triangle mesh over every linear route)."""
+    if name == "mixed":
+        tris, levels, _ = _mixed_tris(uv_tris)
+        return _mixed_desc(tex, tris, levels), sum(4 ** lv for lv in levels)
+    utri = len(uv_tris) * 4 ** SUBDIV
+    if name == "nearest":
+        return _nearest_desc(tex, uv_tris), utri
+    return _desc(tex, uv_tris), utri
+
+
+def _mixed_subset(tris, levels, groups):
+    """Items of every route: the first few of each group."""
+    take = {"bench": 4, "line": 2, "sliver": 2, "level0": 1, "level1": 1,
+            "wide": 1}
+    seen: dict = {}
+    keep = []
+    for k, g in enumerate(groups):
+        seen[g] = seen.get(g, 0) + 1
+        if seen[g] <= take[g]:
+            keep.append(k)
+    return [tris[k] for k in keep], [levels[k] for k in keep]
+
+
 def _cuda_ms(fn, reps=21, burst=5, warm=3):
     """Median milliseconds per call of fn(), over `reps` CUDA-event-timed
     bursts of `burst` back-to-back calls (a burst hides the launch
@@ -166,6 +266,51 @@ def slot_streams(tex, uvs, cfg, subdiv, n, dev):
             f"TSA {kw['pad']} Cs {res['Cs']} K {res['K']} "
             f"blocks {ids_slot.shape[0]}")
     return (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw), kw, what
+
+
+def _timed_bakes(desc, utri, what, card):
+    """2 warm-up bakes, then 5 timed ones (each ending with the result on
+    the host) with every count set to 0 just before them: (counts after
+    the 5, times, results, summary)."""
+    import omm_tpu_torch as ot
+    for _ in range(2):
+        ot.bake(desc)
+    torch.cuda.synchronize()
+    ot.reset_launches()
+    times, results = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        results.append(ot.bake(desc))  # numpy arrays: on the host
+        times.append(time.perf_counter() - t0)
+    counts = ot.launches()
+    best, med = min(times), statistics.median(times)
+    summary = {"utri": utri, "best_s": best, "median_s": med,
+               "best_mutri_s": utri / best / 1e6,
+               "median_mutri_s": utri / med / 1e6}
+    print(f"{what}: {desc.index_count // 3} tris ({utri} utri): best "
+          f"{best:.4f} s median {med:.4f} s -> {utri / best / 1e6:.2f} "
+          f"M utri/s best, {utri / med / 1e6:.2f} M utri/s median; exact "
+          f"launches {counts['exact_classify']} in 5 bakes ({card})",
+          flush=True)
+    print(f"{what} times s: {json.dumps([round(t, 6) for t in times])}")
+    if not all(_results_equal(r, results[0]) for r in results):
+        raise SystemExit(f"the timed {what} bakes differ from one another")
+    return counts, times, results, summary
+
+
+def _card_equals_cpu(desc_fn, what):
+    """Bake desc_fn() on the card and on the CPU (the port's plain
+    path); fail unless the BakeResults are byte-equal."""
+    import omm_tpu_torch as ot
+    r_card = ot.bake(desc_fn())
+    t0 = time.perf_counter()
+    r_cpu = ot.bake(desc_fn(), device="cpu")
+    if not _results_equal(r_card, r_cpu):
+        raise SystemExit(f"{what}: the BakeResult on the card differs from "
+                         "the CPU bake")
+    print(f"{what}: BakeResult on the card byte-equal to the CPU bake "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+    return r_card
 
 
 def _results_equal(a, b) -> bool:
@@ -271,47 +416,78 @@ def main():
           f"({bound_by}) ({card})", flush=True)
 
     # ---- 4. slice ----
-    for _ in range(2):
-        ot.bake(desc)
-    torch.cuda.synchronize()
-    ot.reset_launches()
-    times, results = [], []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        got = ot.bake(desc)  # numpy arrays: on the host
-        times.append(time.perf_counter() - t0)
-        results.append(got)
-    launches = ot.launches()["exact_classify"]
+    main_launches, _, results, bench_sum = _timed_bakes(
+        *_workload_desc("bench", tex, uv_tris), "bake", card)
+    launches = main_launches["exact_classify"]
     if launches == 0:
         raise SystemExit("the bake never launched the exact kernel")
-    utri = N_TRIS * 4 ** SUBDIV
-    best, med = min(times), statistics.median(times)
-    print(f"bake: {N_TRIS} tris subdiv {SUBDIV} ({utri} utri): best "
-          f"{best:.4f} s median {med:.4f} s -> {utri / best / 1e6:.2f} "
-          f"M utri/s best, {utri / med / 1e6:.2f} M utri/s median; "
-          f"launches {launches} in 5 bakes ({card})", flush=True)
-    print(f"bake times s: {json.dumps([round(t, 6) for t in times])}")
+    got = results[-1]
 
     # ---- 5. correctness ----
-    if not all(_results_equal(r, got) for r in results):
-        raise SystemExit("the timed bakes differ from one another")
     nd = _check_shape(got, N_TRIS)
     print(f"shape: {N_TRIS} indices, {nd} descriptors at subdiv {SUBDIV}, "
           f"{len(got.array_data)} bytes of states; 5 bakes byte-equal")
-    desc16 = _desc(tex, uv_tris[:16])
-    r_card = ot.bake(desc16)
-    t0 = time.perf_counter()
-    r_cpu = ot.bake(_desc(tex, uv_tris[:16]), device="cpu")
+    r_card = _card_equals_cpu(lambda: _desc(tex, uv_tris[:16]),
+                              "16-triangle bench bake")
     _check_shape(r_card, 16)
-    if not _results_equal(r_card, r_cpu):
-        raise SystemExit("16-triangle BakeResult on the card differs from "
-                         "the CPU bake")
-    print(f"16-triangle BakeResult byte-equal to the CPU bake (twin; "
-          f"{time.perf_counter() - t0:.1f} s on the CPU)")
+
+    # ---- 6. nearest ----
+    near_desc, utri = _workload_desc("nearest", tex, uv_tris)
+    near_counts, _, near_res, near_sum = _timed_bakes(
+        near_desc, utri, "nearest bake", card)
+    _check_shape(near_res[-1], N_TRIS)
+    p1 = near_counts["route.nearest_phase1_utri"] // 5
+    sv = near_counts["route.nearest_survivors_utri"] // 5
+    print(f"nearest per bake: phase-1 resolved {p1} utri of {utri} "
+          f"({near_counts['route.nearest_phase1'] // 5} items), survivors "
+          f"pass {sv} utri ({near_counts['route.nearest_survivors'] // 5} "
+          "items)", flush=True)
+    # the bench texture leaves the coarse pass nothing to resolve, so
+    # every micro-triangle goes to phase 1 or to the survivors pass
+    if p1 == 0 or sv == 0 or p1 + sv != utri:
+        raise SystemExit("the nearest bake did not split its micro-"
+                         "triangles between phase 1 and the survivors")
+    _card_equals_cpu(lambda: _nearest_desc(tex, uv_tris[:16]),
+                     "16-triangle nearest bake")
+
+    # ---- 7. mixed ----
+    mix_counts, _, _, mix_sum = _timed_bakes(
+        *_workload_desc("mixed", tex, uv_tris), "mixed bake", card)
+    linear_routes = ("fast_path", "dense", "linear_survivors", "degenerate")
+    per = {r: mix_counts[f"route.{r}"] // 5 for r in linear_routes}
+    print(f"mixed routes per bake (items): {json.dumps(per)}; exact "
+          f"launches per bake {mix_counts['exact_classify'] // 5}",
+          flush=True)
+    if min(per.values()) == 0 or mix_counts["exact_classify"] == 0:
+        raise SystemExit("a route of the mixed bake took no item")
+    sub = _mixed_subset(*_mixed_tris(uv_tris))
+    ot.reset_launches()
+    _card_equals_cpu(lambda: _mixed_desc(tex, *sub),
+                     f"{len(sub[0])}-triangle mixed subset")
+    sub_routes = {k: v for k, v in ot.launches().items()
+                  if k.startswith("route.") and v}
+    print(f"mixed subset routes (card + CPU bakes): {json.dumps(sub_routes)}")
+    if any(sub_routes.get(f"route.{r}", 0) == 0 for r in linear_routes):
+        raise SystemExit("a route of the mixed bake took no item of the "
+                         "card-vs-CPU subset")
+
+    # ---- 8. aabb ----
+    from omm_tpu_torch.types import BakeFlags
+
+    def aabb_desc():
+        d = _desc(tex, uv_tris[:16])
+        d.bake_flags = (BakeFlags.DisableLevelLineIntersection
+                        | BakeFlags.EnableAABBTesting)
+        return d
+
+    ot.reset_launches()
+    _card_equals_cpu(aabb_desc, "16-triangle AABB-testing bake")
+    if ot.launches()["route.host_engine"] == 0:
+        raise SystemExit("the AABB bake did not run the host engine")
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
-    # ---- 6. timing ----
+    # ---- 9. timing ----
     dev_ms = device_ms(lambda: exact.exact_counts(*args, **kw),
                        "exact_classify")
     ms_dev = dev_ms if dev_ms is not None else ms
@@ -319,11 +495,16 @@ def main():
           f"traced, events used), at {bound_ms / ms_dev:.4f} of its bound "
           f"({card})", flush=True)
 
+    by_path = {"bench": launches, "nearest": near_counts["exact_classify"],
+               "mixed": mix_counts["exact_classify"]}
+    print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
+                                "mixed": mix_sum}, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",
         "replaces": "omm_tpu/kernels/pallas_classify.py:290",
-        "launches": launches, "launches_per_bake": launches // 5,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_per_bake": launches // 5,
         "max_abs_err": err, "ms": ms_dev, "event_ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}))

@@ -1,8 +1,10 @@
 """omm_tpu_torch: the opacity micro-map baker's device path in PyTorch.
 
-A port of `omm_tpu`'s `bake(desc, backend="pallas")` main path (the
-linear-filter, level-line two-phase engine) to torch, with the exact
-classification stage as a hand-written CUDA kernel for Hopper.  The
+A port of `omm_tpu`'s `bake(desc, backend="pallas")` to torch: the
+linear-filter, level-line two-phase engine, with the exact
+classification stage as a hand-written CUDA kernel for Hopper, and the
+routes off its fast path (nearest filter, line triangles, slivers, wide
+windows, low subdivision levels, the AABB debug kernels) as torch ops.  The
 JAX package `omm_tpu` stays the reference; this package imports nothing
 of it and never imports jax: it keeps its own copies of the host code it
 needs, under the JAX package's module names (`types`, `texture`,
@@ -21,19 +23,25 @@ plain numpy arrays and ints.
 from .texture import Texture
 from .types import BakeInputDesc, BakeResult, TextureFormat
 
+from . import routes
 from .bake import bake
 from .batch import classify_work_items_batches
 from .kernels import exact as exact_kernel
 
 
 def launches() -> dict:
-    """Kernel launches made in this process, by kernel name."""
-    return {"exact_classify": exact_kernel.LAUNCHES}
+    """Kernel launches made in this process, by kernel name, and the work
+    items each classification route took ("route.<name>", see
+    `routes`)."""
+    out = {"exact_classify": exact_kernel.LAUNCHES}
+    out.update({f"route.{k}": v for k, v in routes.COUNTS.items()})
+    return out
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count and every route's count to 0."""
     exact_kernel.LAUNCHES = 0
+    routes.reset()
 
 
 __all__ = ["BakeInputDesc", "BakeResult", "Texture", "TextureFormat", "bake",

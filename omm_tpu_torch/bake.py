@@ -7,9 +7,11 @@ The host half is the port's copy of `omm_tpu/bake.py`: work items
 every stage it runs (promotion, exact and near-duplicate dedup,
 compression, histograms, spatial sort, serialization).  Not carried
 over: the speculative serialize blob, the `OMM_BAKE_TRACE` marks, the
-backend switch and the mesh.  The fine classification runs through
-`batch.classify_work_items_batches`, batched per subdivision level as
-bake.py batches it for the two-phase engine.
+backend switch and the mesh.  The fine classification follows the
+pallas backend's routes (`classify_items`): the two-phase engine
+(`batch.classify_work_items_batches`, batched per subdivision level as
+bake.py batches it), and the `classify` and `engine` passes for the
+items off its fast path.
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ from dataclasses import dataclass
 import numpy as np
 from torch.profiler import record_function
 
-from . import engine, geom, native
-from .batch import (check_device, classify_work_items_batches,
-                    unsupported_reason)
+from . import classify, engine, geom, native
+from .batch import classify_work_items_batches
 from .bit_tricks import xy_to_morton
 from .log import Logger
 from .mt19937 import MT19937
+from .planes import check_device
 from .texture import Texture, get_tex_coord
 from .types import (BakeError, BakeFlags, BakeInputDesc, BakeResult, Format,
                     IndexFormat, MicromapDesc, OpacityState, Result,
@@ -33,7 +35,7 @@ from .types import (BakeError, BakeFlags, BakeInputDesc, BakeResult, Format,
                     UsageCount, get_bit_count, get_num_micro_triangles,
                     is_compatible, MAX_NUM_SUBDIV_LEVELS,
                     MAX_SUBDIV_LEVEL)
-from .twophase import PackedStates
+from .twophase import PackedStates, resolve_nearest_phase1
 
 UO = int(OpacityState.UnknownOpaque)
 UT = int(OpacityState.UnknownTransparent)
@@ -985,8 +987,16 @@ def _config(desc: BakeInputDesc, opts: Options) -> engine.ResampleConfig:
 
 def classify_items(desc: BakeInputDesc, opts: Options, items: list,
                    device) -> None:
-    """The classification half of bake(): the coarse pass, then the fine
-    pass of every item on `device`, mutating `items` in place."""
+    """The classification half of bake(), mutating `items` in place, in
+    the order of the JAX package's pallas route (bake.py:1166-1326): the
+    coarse pass; for the nearest filter, the phase-1 window resolve of
+    each subdivision level; the two-phase engine's batches for the
+    linear-filter, level-line, non-degenerate items; the nearest-filter
+    survivors through `classify.classify_nearest_survivors_batch` (one
+    stream per level); then every other item through
+    `engine.resample_fine_item`: line triangles (the linear filter's
+    degenerate pass, or the nearest filter's), and without level lines
+    the AABB debug kernels."""
     tex = desc.texture
     cfg = _config(desc, opts)
     if opts.enable_aabb_testing and not opts.disable_level_line_intersection:
@@ -1003,33 +1013,67 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
 
     degen = np.asarray(geom.is_degenerate(
         np.stack([it.uv_tri for it in items]))).reshape(len(items))
-    for it, dg in zip(items, degen):
-        if (cfg.filter != TextureFilterMode.Linear or cfg.disable_level_line
-                or dg):
-            raise NotImplementedError(
-                unsupported_reason(cfg, it.uv_tri, it.subdivision_level))
+    linear_ll = (cfg.filter == TextureFilterMode.Linear
+                 and not cfg.disable_level_line)
+    nearest = cfg.filter == TextureFilterMode.Nearest
 
+    if nearest:
+        for level, idxs in _by_level(items, ~degen).items():
+            res = resolve_nearest_phase1(
+                tex, cfg, [(items[i].uv_tri, items[i].states) for i in idxs],
+                level, device)
+            if res is not None:
+                for i, st in zip(idxs, res):
+                    items[i].states = st
+
+    if linear_ll:
+        chunks, levels = [], []
+        for level, idxs in sorted(_by_level(items, ~degen).items(),
+                                  reverse=True):
+            per_item = get_num_micro_triangles(level)
+            cs = split_tail_light(idxs,
+                                  [max(1, MAX_UTRI_PER_BATCH // per_item)])
+            chunks.extend(cs)
+            levels.extend([level] * len(cs))
+        batches = [[(items[i].uv_tri,
+                     None if getattr(items[i], "_fresh", False)
+                     else items[i].states) for i in c] for c in chunks]
+        outs = classify_work_items_batches(tex, cfg, batches, levels,
+                                           device=device)
+        for c, res in zip(chunks, outs):
+            for i, st in zip(c, res):
+                if isinstance(st, PackedStates):
+                    items[i].set_packed_states(st)
+                else:
+                    items[i].states = st
+    elif nearest:
+        for level, idxs in _by_level(items, ~degen).items():
+            res = classify.classify_nearest_survivors_batch(
+                tex, cfg, [(items[i].uv_tri, items[i].states) for i in idxs],
+                level, device)
+            for i, st in zip(idxs, res):
+                _set_states(items[i], st)
+    # what no pass above took: the line triangles, or every item of a bake
+    # without level lines; the engine routes each by the configuration
+    rest = np.flatnonzero(degen) if (linear_ll or nearest) \
+        else range(len(items))
+    for i in rest:
+        it = items[i]
+        _set_states(it, engine.resample_fine_item(
+            tex, cfg, it.uv_tri, it.subdivision_level, it.states, device))
+
+
+def _set_states(it, st):
+    if st is not it.states:  # an identity keeps the item's caches
+        it.states = st
+
+
+def _by_level(items, sel) -> dict:
+    """Indices of the selected items, by subdivision level."""
     by_level: dict[int, list[int]] = {}
-    for i, it in enumerate(items):
-        by_level.setdefault(it.subdivision_level, []).append(i)
-    chunks, levels = [], []
-    for level in sorted(by_level, reverse=True):
-        per_item = get_num_micro_triangles(level)
-        cs = split_tail_light(by_level[level],
-                              [max(1, MAX_UTRI_PER_BATCH // per_item)])
-        chunks.extend(cs)
-        levels.extend([level] * len(cs))
-    batches = [[(items[i].uv_tri,
-                 None if getattr(items[i], "_fresh", False)
-                 else items[i].states) for i in c] for c in chunks]
-    outs = classify_work_items_batches(tex, cfg, batches, levels,
-                                       device=device)
-    for c, res in zip(chunks, outs):
-        for i, st in zip(c, res):
-            if isinstance(st, PackedStates):
-                items[i].set_packed_states(st)
-            else:
-                items[i].states = st
+    for i in np.flatnonzero(sel):
+        by_level.setdefault(items[i].subdivision_level, []).append(int(i))
+    return by_level
 
 
 def bake(desc: BakeInputDesc, device="cuda", logger=None,
@@ -1037,9 +1081,11 @@ def bake(desc: BakeInputDesc, device="cuda", logger=None,
     """Bake `desc` with the fine classification on `device`, a torch
     device: "cuda" (the default) runs the hand-written exact kernel and
     raises where there is no CUDA device; "cpu" runs its plain twin.
-    The result is byte-equal to `omm_tpu.bake(desc, backend="pallas")`.
-    Nearest filter, degenerate triangles and the other routes off the
-    two-phase engine's fast path raise NotImplementedError."""
+    The result is byte-equal to `omm_tpu.bake(desc, backend="pallas")`
+    for every descriptor, whichever routes its items take
+    (`classify_items`): the two-phase engine, the dense and survivors
+    level-line passes, line triangles, the nearest filter, and the AABB
+    debug kernels."""
     device = check_device(device)
     log = logger or Logger()
     opts = Options.from_flags(desc.bake_flags)

@@ -1,12 +1,15 @@
 """Batched classification of work items through the two-phase engine.
 
-Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`,
-main path only.  Per batch: class planes (cached per texture), then
-`stage_ab`, `stage_c_mip` for every mip, and `stage_d`, all on the given
-device; the packed states come back in one device-to-host copy.
+Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`.
+Per batch: class planes (cached per texture), then `stage_ab`,
+`stage_c_mip` for every mip, and `stage_d`, all on the given device; the
+packed states come back in one device-to-host copy.
 
-Items outside the engine's fast path raise NotImplementedError: the JAX
-package sends them to routes this port does not have yet (ROADMAP A8).
+Items outside the engine's fast path take the JAX package's slow routes
+(twophase `_classify_slow`) on the same device through
+`engine.resample_fine_item`: a linear-filter level-line item goes to
+`classify.classify_work_item`, or to `classify.classify_degenerate` when
+it is a line triangle; any other item to the engine's own passes.
 """
 from __future__ import annotations
 
@@ -14,31 +17,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import geom, host, native, planes
+from . import engine, geom, host, native, planes, routes
 from .host import TILE
+from .planes import check_device
 from .twophase import PackedStates, stage_ab, stage_c_mip, stage_d
-from .types import OpacityState, TextureFilterMode, get_num_micro_triangles
+from .types import OpacityState, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
-
-
-def unsupported_reason(cfg, uv_tri: np.ndarray, subdiv: int) -> str:
-    """Why an item is off the fast path, naming the ROADMAP item that
-    ports its route."""
-    if cfg.filter != TextureFilterMode.Linear:
-        what = "the nearest filter"
-    elif getattr(cfg, "disable_level_line", False):
-        what = "bakes without level-line intersection"
-    elif subdiv < 2:
-        what = "subdivision levels below 2"
-    elif bool(geom.is_degenerate(uv_tri)):
-        what = "degenerate triangles"
-    elif not bool(geom.winding_stable(uv_tri, subdiv)):
-        what = "winding-unstable slivers"
-    else:
-        what = "texel windows beyond the exact stage's tile"
-    return (f"omm_tpu_torch does not classify {what} yet "
-            "(ROADMAP A8: fallback routes)")
 
 
 def precompute(texture, uvs, subdiv, lg):
@@ -159,17 +144,6 @@ def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
             out[i] = st
 
 
-def check_device(device) -> torch.device:
-    """`device` as a torch.device; "cuda" without a CUDA device raises
-    (the port never falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("omm_tpu_torch: no CUDA device for device="
-                           f"{str(device)!r}; pass device='cpu' to run the "
-                           "plain torch path on the CPU")
-    return device
-
-
 def classify_work_items_batches(texture, cfg, batches, subdiv, *,
                                 device="cuda"):
     """Classify several batches of work items on `device`.
@@ -182,9 +156,10 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     torch twin.
 
     Returns per batch the list of results: a PackedStates (serialize's
-    2-bit rows) for every item of a batch whose items are all fully
-    active, else (M,) uint8 arrays.  Items with nothing left to
-    classify come back unchanged."""
+    2-bit rows) for every fast-path item of a batch whose fast-path
+    items are all fully active, else (M,) uint8 arrays.  Items with
+    nothing left to classify come back unchanged.  Items off the fast
+    path go through `engine.resample_fine_item`."""
     device = check_device(device)
     subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
                else [int(s) for s in subdiv])
@@ -219,23 +194,34 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
         uvs = [routed[bi][0][i][0] for bi in bis for i in routed[bi][2]]
         lgs[sd] = host._group_level(texture, uvs, sd) if uvs else 1
     fast_uvs: dict[int, list] = {sd: [] for sd in by_level}
+    fast_lists, slow = [], []
     for (items, out, todo, mins), sd in zip(routed, subdivs):
-        if not todo:
-            continue
-        mask = host._fast_path_mask(
-            texture, cfg, np.stack([items[i][0] for i in todo]), sd,
-            lgs[sd])
-        for k, i in enumerate(todo):
-            if not mask[k]:
-                raise NotImplementedError(
-                    unsupported_reason(cfg, items[i][0], sd))
-        fast_uvs[sd].extend(items[i][0] for i in todo)
+        fast = []
+        if todo:
+            mask = host._fast_path_mask(
+                texture, cfg, np.stack([items[i][0] for i in todo]), sd,
+                lgs[sd])
+            for k, i in enumerate(todo):
+                if mask[k]:
+                    fast.append(i)
+                else:
+                    slow.append((items, out, i, sd))
+        fast_lists.append(fast)
+        fast_uvs[sd].extend(items[i][0] for i in fast)
     precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
                 for sd, uvs in fast_uvs.items() if uvs}
 
-    for (items, out, todo, mins), sd in zip(routed, subdivs):
-        if todo:
-            _run_batch(texture, cfg, items, sd, todo, out,
-                       all(mins[i] == UO for i in todo), precomps[sd],
+    for (items, out, todo, mins), fast, sd in zip(routed, fast_lists,
+                                                  subdivs):
+        if fast:
+            routes.count("fast_path", len(fast))
+            _run_batch(texture, cfg, items, sd, fast, out,
+                       all(mins[i] == UO for i in fast), precomps[sd],
                        device)
+    for items, out, i, sd in slow:
+        st = items[i][1]
+        if st is None:
+            st = np.full(get_num_micro_triangles(sd), UO, np.uint8)
+        out[i] = engine.resample_fine_item(texture, cfg, items[i][0], sd, st,
+                                           device)
     return results

@@ -232,3 +232,43 @@ def _descend_levels(texture: Texture, uv_tris, subdiv: int,
     levels = list(range(l0, subdiv, 2))
     levels.append(subdiv)
     return tuple(levels)
+
+
+def _nearest_phase1_windows(texture: Texture, cfg, uv_tris,
+                            subdiv: int) -> list | None:
+    """The preconditions of the nearest-filter phase-1 resolve
+    (twophase.resolve_nearest_phase1): nearest filter, subdivision 2 or
+    more, no degenerate item, micro-triangles far above fp32 edge-test
+    noise (the span gate), and windows the padded plane holds, with the
+    periodic modes' guards.  Returns None when one fails, else the
+    largest (Hb, Wb) window over the items at each mip."""
+    if cfg.filter != TextureFilterMode.Nearest or subdiv < 2:
+        return None
+    windows = [(0, 0)] * texture.mip_count
+    for uv_tri in uv_tris:
+        if bool(geom.is_degenerate(uv_tri)):
+            return None
+        for mip in range(texture.mip_count):
+            w, h = texture.size(mip)
+            q = uv_tri.astype(np.float64) * np.array([w, h], np.float64)
+            span = (q.max(axis=0) - q.min(axis=0)) * 2.0 ** -subdiv
+            if span.min() < 0.25:
+                return None
+            Hb, Wb = _span_window(texture, uv_tri, subdiv, mip)
+            windows[mip] = (max(windows[mip][0], Hb),
+                            max(windows[mip][1], Wb))
+            pad = TILE + max(Hb + 2, Wb + 2)
+            tmin = np.floor(q.min(axis=0)) - 2
+            tmax = np.ceil(q.max(axis=0)) + 2
+            if _period_for(texture, cfg.addr_mode, mip) is not None:
+                if (np.abs(q) >= 2.0 ** 30).any():
+                    return None
+                if (cfg.addr_mode == TextureAddressMode.Wrap
+                        and not texture.info[mip].is_pow2
+                        and (tmin[0] < 1 or tmin[1] < 1)):
+                    return None
+            elif (tmin[0] < 1 - pad or tmin[1] < 1 - pad
+                    or tmax[0] + Wb + 6 > w + pad
+                    or tmax[1] + Hb + 6 > h + pad):
+                return None
+    return windows

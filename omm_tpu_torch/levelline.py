@@ -1,7 +1,9 @@
 """Level-line classification math in torch.
 
-Counterparts of `omm_tpu.kernels.levelline` for the non-degenerate
-linear-filter path, in the same fp32 operation order.  Eager torch runs
+Counterparts of `omm_tpu.kernels.levelline` (the conservative raster
+mask, the level-line kernel's non-degenerate and degenerate branches,
+the coverage-to-state map), in the same fp32 operation order.  Eager
+torch runs
 each operation as its own kernel, so `a*b + c` is never contracted into
 an FMA, and `/` rounds to nearest: the JAX module's contraction fence
 (`guard`) has no counterpart here, and its correctly rounded software
@@ -16,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .types import Format, OpacityState, UnknownStatePromotion
+from .texture_torch import gather_tex_coord4, load
+from .types import (Format, OpacityState, TextureAddressMode,
+                    UnknownStatePromotion)
 
 
 def f32(v) -> float:
@@ -139,6 +143,93 @@ def tri_params(p0x, p0y, p1x, p1y, p2x, p2y):
             "p0p2x": p0x - p2x, "p0p2y": p0y - p2y,
             "p1p0x": p1x - p0x, "p1p0y": p1y - p0y,
             "p2p1x": p2x - p1x, "p2p1y": p2y - p1y}
+
+
+def make_tri_params(tri):
+    """tri_params of (..., 3, 2) fp32 triangles with two trailing
+    broadcast axes (levelline.make_tri_params)."""
+    def g(i, j):
+        return tri[..., i, j][..., None, None]
+    return tri_params(g(0, 0), g(0, 1), g(1, 0), g(1, 1), g(2, 0), g(2, 1))
+
+
+def conservative_raster_mask(q, x, y):
+    """Over-conservative Pineda edge-test accept mask
+    (cpu_raster.h:102-124 via :304-333).  q: (..., 3, 2) fp32
+    CCW-normalized raster-space triangles; x, y: int texel coordinates
+    broadcastable to (..., H, W)."""
+    sx = x.to(torch.float32)
+    sy = y.to(torch.float32)
+    acc = None
+    for e in range(3):
+        px = q[..., e, 0][..., None, None]
+        py = q[..., e, 1][..., None, None]
+        qx = q[..., (e + 1) % 3, 0][..., None, None]
+        qy = q[..., (e + 1) % 3, 1][..., None, None]
+        nx = qy - py
+        ny = px - qx
+        c = -(nx * px + ny * py)
+        ev = (nx * sx + ny * sy) + c
+        bx = torch.where(nx > 0.0, 0.0, nx)
+        by = torch.where(ny > 0.0, 0.0, ny)
+        ok = (ev + bx + by) < 0.0
+        acc = ok if acc is None else (acc & ok)
+    return acc
+
+
+def level_line_texel_kernel(tp, px_i, py_i, plane, info, addr_mode,
+                            alpha_cutoff, border_alpha, degenerate=False,
+                            aabb_s=None, aabb_e=None):
+    """Per-(micro-triangle, texel) increments of the level-line kernel
+    (bake_kernels_cpu.h:241-399) with the 2x2 quad gathered from `plane`
+    (fp32 (h, w) tensor of the mip `info` describes) through the address
+    mode.  degenerate=True takes the line-triangle branch, whose level
+    line is tested against the segment aabb_s -> aabb_e ((..., 2) fp32,
+    one per triangle) instead of the three edges."""
+    c00, c10, c01, c11 = gather_tex_coord4(addr_mode, px_i, py_i, info)
+    ba = border_alpha if addr_mode == TextureAddressMode.Border else None
+    # quad order of the kernel: x=c00, y=c01, z=c11, w=c10
+    # (bake_kernels_cpu.h:259-273)
+    g = [load(plane, cx, cy, ba) for cx, cy in (c00, c01, c11, c10)]
+    rcp = (float(info.rcp_size[0]), float(info.rcp_size[1]))
+    if degenerate:
+        return level_line_values_degenerate(px_i, py_i, *g, info.size,
+                                            alpha_cutoff, aabb_s, aabb_e)
+    return level_line_values_kernel(tp, px_i, py_i, *g, info.size, rcp,
+                                    alpha_cutoff)
+
+
+def level_line_values_degenerate(px_i, py_i, gx, gy, gz, gw, tex_size,
+                                 alpha_cutoff, aabb_s, aabb_e):
+    """The degenerate branch of the level-line kernel
+    (bake_kernels_cpu.h:358-374): no corner-in-triangle search, and one
+    edge test against the AABB diagonal aabb_s -> aabb_e ((..., 2) fp32
+    per triangle, broadcast over two trailing texel axes)."""
+    cutoff = f32(alpha_cutoff)
+    sizef_x = f32(float(tex_size[0]))
+    sizef_y = f32(float(tex_size[1]))
+    pixelf_x = px_i.to(torch.float32) + 0.5
+    pixelf_y = py_i.to(torch.float32) + 0.5
+
+    a = gx
+    b = gw - gx
+    c = gy - gx
+    d = gx + gz - gy - gw
+    uniform = is_zero(b) & is_zero(c) & is_zero(d)
+    uni_above = uniform & (cutoff < a)
+    uni_below = uniform & ~(cutoff < a)
+
+    def end(p, k, size, pix):
+        return size * p[..., k][..., None, None] - pix
+
+    hit = edge_hyperbola_hit(end(aabb_s, 0, sizef_x, pixelf_x),
+                             end(aabb_s, 1, sizef_y, pixelf_y),
+                             end(aabb_e, 0, sizef_x, pixelf_x),
+                             end(aabb_e, 1, sizef_y, pixelf_y),
+                             a - cutoff, b, c, d)
+    above = uni_above | (~uniform & hit)
+    below = uni_below | (~uniform & hit)
+    return above.to(torch.int32), below.to(torch.int32)
 
 
 def level_line_values_kernel(tp, px_i, py_i, gx, gy, gz, gw, tex_size,

@@ -26,6 +26,17 @@ PHASE1_MARGIN = f32(2.0 ** -14)
 _CACHE_ATTR = "_omm_torch_cache"
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" without a CUDA device raises
+    (the port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("omm_tpu_torch: no CUDA device for device="
+                           f"{str(device)!r}; pass device='cpu' to run the "
+                           "plain torch path on the CPU")
+    return device
+
+
 def tex_cache(texture: Texture, device) -> dict:
     """The port's per-texture cache for one device."""
     c = texture.__dict__.get(_CACHE_ATTR)

@@ -8,6 +8,8 @@ Counterparts of `omm_tpu.kernels.twophase`'s device programs:
   stage_c_mip  _stageC_mip: slot stream -> exact kernel -> survivor counts
   stage_d      _stageD: per-mip count merge, per-level row overwrites,
                survivor scatter, 2-bit state pack
+  nearest_sides, resolve_nearest_phase1
+               _nearest_sides and the nearest filter's phase-1 resolve
 
 The JAX programs run at static capacities ("buckets") with an overflow
 flag, because every host sync crossed a slow link.  Here each level's
@@ -22,10 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torch.profiler import record_function
+
+from . import routes
 from .bird_torch import bary_cols, corner_cols, tri6_of
-from .host import B, TILE, wrap_origin
+from .host import B, TILE, _nearest_phase1_windows, _period_for, wrap_origin
 from .kernels.exact import exact_counts
 from .levelline import f32, get_state_from_coverage
+from .planes import check_device, class_plane_cached
 from .native import unpack_2bit_seq
 from .types import OpacityState, get_num_micro_triangles
 
@@ -259,3 +265,104 @@ def stage_d(sides, nodes, ids, mip_counts, *, T, subdiv, levels, fmt,
     s = base.view(T, M // 4, 4)
     return (s[..., 0] | (s[..., 1] << 2) | (s[..., 2] << 4)
             | (s[..., 3] << 6))
+
+
+# ---------------------------------------------------------------------------
+# nearest-filter phase-1 resolve (bake_cpu_impl.cpp:969-1022 semantics)
+# ---------------------------------------------------------------------------
+
+#: (item, micro-triangle) pairs per chunk of nearest_sides
+SIDES_CHUNK = 1 << 22
+
+
+def nearest_sides(cls_planes, uv_flat, *, subdiv, mips, pads, periods):
+    """Per-micro-triangle side (+1 / -1 / 0, int8 (T, M)) of every
+    micro-triangle of every item for the nearest filter, combined over
+    mips (twophase._nearest_sides): the class plane at the zero-offset
+    window origin floor(min q), q = muv * size.  Items go in chunks that
+    bound the (chunk, M) temporaries."""
+    device = uv_flat.device
+    T = uv_flat.shape[0]
+    M = get_num_micro_triangles(subdiv)
+    bu, bv, bd = bary_cols(torch.arange(M, dtype=torch.int64,
+                                        device=device), subdiv)
+    out = torch.empty((T, M), dtype=torch.int8, device=device)
+    step = max(1, SIDES_CHUNK // M)
+    for t0 in range(0, T, step):
+        tri6 = tuple(uv_flat[t0:t0 + step, k:k + 1] for k in range(6))
+        (ax, ay), (bx, by), (cx, cy) = corner_cols(
+            tri6, bu[None, :], bv[None, :], bd[None, :])
+        side = None
+        for mi, (w, h) in enumerate(mips):
+            pad = pads[mi]
+            qxm = torch.minimum(torch.minimum(ax, bx), cx) * f32(float(w))
+            qym = torch.minimum(torch.minimum(ay, by), cy) * f32(float(h))
+            x0 = torch.floor(qxm).to(torch.int32)
+            y0 = torch.floor(qym).to(torch.int32)
+            x0, y0 = wrap_origin(x0, y0, periods[mi])
+            cls = cls_planes[mi]
+            H2, W2 = cls.shape
+            yy = (y0.to(torch.int64) - 1 + pad).clamp(0, H2 - 1)
+            xx = (x0.to(torch.int64) - 1 + pad).clamp(0, W2 - 1)
+            s = cls[yy, xx]
+            side = s if side is None else torch.where(s == side, side,
+                                                      torch.zeros_like(s))
+        out[t0:t0 + step] = side
+    return out
+
+
+def resolve_nearest_phase1(texture, cfg, items, subdiv: int,
+                           device="cuda"):
+    """Phase-1 window resolve for nearest-filter work items
+    (twophase.resolve_nearest_phase1): a micro-triangle whose texel
+    window lies strictly on one side of the cutoff gets its final state;
+    the rest stay UnknownOpaque for classify.classify_nearest_survivors.
+    items: (uv_tri, states or None) pairs.  Returns the new state list,
+    or None when the preconditions (host._nearest_phase1_windows) fail.
+    The side map comes to the host as int8, one byte per micro-triangle.
+    Profiler label omm.nearest_phase1."""
+    device = check_device(device)
+    with record_function("omm.nearest_phase1"):
+        windows = _nearest_phase1_windows(texture, cfg,
+                                          [it[0] for it in items], subdiv)
+        if windows is None:
+            return None
+        out, resolved = _nearest_phase1(texture, cfg, items, subdiv,
+                                        windows, device)
+    routes.count("nearest_phase1", len(out))
+    routes.count("nearest_phase1_utri", resolved)
+    return out
+
+
+def _nearest_phase1(texture, cfg, items, subdiv, windows, device):
+    """(new state list, micro-triangles this pass resolved) for the
+    items, with the largest (Hb, Wb) window over them at each mip."""
+    cutoff = float(cfg.alpha_cutoff)
+    ba = float(getattr(cfg, "border_alpha", 0.0))
+    mips, pads, cls_planes, periods = [], [], [], []
+    for mip, (Hb, Wb) in enumerate(windows):
+        pad = TILE + max(Hb + 2, Wb + 2)
+        period = _period_for(texture, cfg.addr_mode, mip)
+        periods.append(period)
+        mips.append(texture.size(mip))
+        pads.append(pad)
+        cls_planes.append(class_plane_cached(texture, mip, cfg.addr_mode,
+                                             pad, Hb, Wb, cutoff, ba, period,
+                                             device))
+    uv_flat = torch.from_numpy(np.stack(
+        [it[0].reshape(6) for it in items]).astype(np.float32)).to(device)
+    side = nearest_sides(cls_planes, uv_flat, subdiv=subdiv, mips=mips,
+                         pads=pads, periods=periods).cpu().numpy()
+
+    st_gt = np.uint8(int(cfg.cutoff_gt))
+    st_le = np.uint8(int(cfg.cutoff_le))
+    M = get_num_micro_triangles(subdiv)
+    out, resolved = [], 0
+    for t, (uv_tri, states) in enumerate(items):
+        st = np.full(M, UO, np.uint8) if states is None else states.copy()
+        act = st == UO
+        st[act & (side[t] == 1)] = st_gt
+        st[act & (side[t] == -1)] = st_le
+        resolved += int(np.count_nonzero(act & (side[t] != 0)))
+        out.append(st)
+    return out, resolved

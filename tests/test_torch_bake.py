@@ -1,8 +1,9 @@
 """omm_tpu_torch.bake end to end on the CPU: byte-equal BakeResults with
 omm_tpu.bake's pallas and numpy backends, the reference suite's
 mandelbrot statistics, planes carried over from the JAX package's cache,
-NotImplementedError on the routes the port does not have yet, and the
-card as the default device.  Each test builds the JAX package's
+the routes the first slice refused (nearest filter, a line triangle,
+windows beyond the exact stage's tile), and the card as the default
+device.  Each test builds the JAX package's
 descriptor and the port's (through convert.bake_input) from the same
 numpy arrays and enum values, and compares the results as
 convert.result_to_numpy gives them."""
@@ -165,29 +166,44 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_nearest_filter_not_implemented():
-    _, desc = _descs(_circle(), sampler=dict(filter=0),
-                     **_bench_fields(n=2))
-    with pytest.raises(NotImplementedError, match="nearest"):
-        ot.bake(desc, device="cpu")
+    """Once refused by the port, the nearest filter now bakes: byte-equal
+    to the pallas and numpy backends."""
+    jdesc, desc = _descs(_circle(), sampler=dict(filter=0),
+                         **_bench_fields(n=2))
+    got = ot.bake(desc, device="cpu")
+    assert_results_equal(got, omm.bake(jdesc, backend="pallas"))
+    assert_results_equal(got, omm.bake(dataclasses.replace(jdesc),
+                                       backend="numpy"))
 
 
 def test_degenerate_triangle_not_implemented():
+    """Once refused by the port, a line triangle now bakes through the
+    degenerate route: byte-equal to the pallas and numpy backends."""
     tc = np.array([[0.1, 0.1], [0.1, 0.1], [0.7, 0.3]], np.float32)
-    desc = convert.bake_input(
-        _circle(), 1, tex_coords=tc,
-        index_buffer=np.arange(3, dtype=np.uint32), index_count=3,
-        alpha_cutoff=0.5, max_subdivision_level=4,
-        dynamic_subdivision_scale=0.0)
-    with pytest.raises(NotImplementedError, match="degenerate"):
-        ot.bake(desc, device="cpu")
+    fields = dict(tex_coords=tc, index_buffer=np.arange(3, dtype=np.uint32),
+                  index_count=3, alpha_cutoff=0.5, max_subdivision_level=4,
+                  dynamic_subdivision_scale=0.0)
+    jdesc, desc = _descs(_circle(), **fields)
+    got = ot.bake(desc, device="cpu")
+    assert_results_equal(got, omm.bake(jdesc, backend="pallas"))
+    assert_results_equal(got, omm.bake(_descs(_circle(), **fields)[0],
+                                       backend="numpy"))
 
 
 def test_circle_quad_off_fast_path_not_implemented():
     """test_bake_oracles.test_circle's level-4 quad: its micro-triangle
-    windows (68 texels) exceed the exact stage's tile."""
-    desc = convert.bake_input(
-        [standard_circle(1024, 1024)], 1, tex_coords=DEFAULT_TEXCOORDS,
-        index_buffer=DEFAULT_INDICES, index_count=6, alpha_cutoff=0.5,
-        max_subdivision_level=4, dynamic_subdivision_scale=0.0)
-    with pytest.raises(NotImplementedError, match="window"):
-        ot.bake(desc, device="cpu")
+    windows (68 texels) exceed the exact stage's tile, so both items take
+    the dense pass; the port gives the reference suite's statistics and
+    the numpy backend's BakeResult."""
+    fields = dict(tex_coords=DEFAULT_TEXCOORDS, index_buffer=DEFAULT_INDICES,
+                  index_count=6, alpha_cutoff=0.5, max_subdivision_level=4,
+                  dynamic_subdivision_scale=0.0,
+                  unknown_state_promotion=int(
+                      omm.UnknownStatePromotion.Nearest))
+    planes = [standard_circle(1024, 1024)]
+    jdesc, desc = _descs(planes, sampler=dict(addressing_mode=2, filter=1),
+                         **fields)
+    got = ot.bake(desc, device="cpu")
+    expect_stats(omm.get_stats(got), total_opaque=204, total_transparent=219,
+                 total_unknown_transparent=39, total_unknown_opaque=50)
+    assert_results_equal(got, omm.bake(jdesc, backend="numpy"))

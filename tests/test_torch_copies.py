@@ -457,3 +457,29 @@ def test_mt19937_and_bit_tricks():
     for v in (0, 1, 2, 3, 96, 1 << 20):
         assert tbits.ctz(v) == jbits.ctz(v)
         assert tbits.is_pow2(v) == jbits.is_pow2(v)
+
+
+def test_raster_line_walks():
+    """raster.py: the Bresenham and conservative DDA walks, scalar and
+    batched, on seeded segments (points, axis-aligned and steep ones)."""
+    from omm_tpu.kernels import raster as jraster
+    from omm_tpu_torch import raster as traster
+    rng = np.random.RandomState(18)
+    p0 = rng.uniform(-0.2, 1.2, (300, 2)).astype(np.float32)
+    p1 = (p0 + rng.uniform(-0.1, 0.1, (300, 2))).astype(np.float32)
+    p1[:20] = p0[:20]          # points
+    p1[20:40, 0] = p0[20:40, 0]  # vertical
+    p1[40:60, 1] = p0[40:60, 1]  # horizontal
+    for size, off in (((64, 48), (-0.5, -0.5)), ((37, 80), (0.0, 0.0))):
+        for a, b in zip(traster.conservative_line_cells_batch(p0, p1, size,
+                                                              off),
+                        jraster.conservative_line_cells_batch(p0, p1, size,
+                                                              off)):
+            assert np.array_equal(a, b)
+        for k in range(0, 300, 7):
+            assert np.array_equal(
+                traster.conservative_line_cells(p0[k], p1[k], size, off),
+                jraster.conservative_line_cells(p0[k], p1[k], size, off))
+            assert np.array_equal(
+                traster.bresenham_line_cells(p0[k], p1[k], size),
+                jraster.bresenham_line_cells(p0[k], p1[k], size))

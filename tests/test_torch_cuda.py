@@ -253,3 +253,68 @@ def test_wrapper_rejects_mixed_devices(cuda):
         exact.exact_counts(plane, bt, ids, uv6, ccw, subdiv=3, pad=70,
                            ntx=4, size=(64, 64), period=None, H=4, W=4,
                            rcp=(1 / 64, 1 / 64), alpha_cutoff=0.5)
+
+
+_LINE = np.array([[0.2, 0.0], [0.2, 0.437582970], [0.2, 0.218791485]],
+                 np.float32)
+_SLIVER = np.array([[0.1, 0.3], [0.9, 0.3000001], [0.5, 0.3]], np.float32)
+_WIDE = np.array([[0.02, 0.03], [0.97, 0.1], [0.4, 0.95]], np.float32)
+
+
+def _route_fields(tris, subdiv, **more):
+    n = len(tris)
+    return dict(tex_coords=np.concatenate(tris).astype(np.float32),
+                index_buffer=np.arange(3 * n, dtype=np.uint32),
+                index_count=3 * n, alpha_cutoff=0.5,
+                max_subdivision_level=subdiv,
+                dynamic_subdivision_scale=0.0, **more)
+
+
+ROUTE_CASES = {
+    # sampler, triangles, subdivision, extra fields, routes that must run
+    "nearest": (dict(filter=0), _tris(6, 9) + [_LINE], 7, {},
+                ("nearest_phase1", "nearest_survivors", "host_engine")),
+    "nearest_border_2state": (dict(filter=0, addressing_mode=3,
+                                   border_alpha=0.7), _tris(4, 2), 6,
+                              dict(format=1), ("nearest_survivors",)),
+    "mixed_linear": (dict(filter=1), _tris(4, 1) + [_LINE, _SLIVER]
+                     + _tris(2, 5) + [_WIDE], 7,
+                     dict(subdivision_levels=np.array(
+                         [7, 7, 7, 7, 7, 7, 0, 1, 2], np.uint8)),
+                     ("fast_path", "degenerate", "linear_survivors",
+                      "dense")),
+    "aabb_testing": (dict(filter=1), _tris(4, 3), 6, dict(bake_flags=int(
+        omm.BakeFlags.DisableLevelLineIntersection
+        | omm.BakeFlags.EnableAABBTesting)), ("host_engine",)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_routes_on_card_equal_cpu(case, cuda):
+    """Each route off the fast path on the card (the bake's default
+    device), byte-equal to the same bake on the CPU."""
+    sampler, tris, sd, more, want = ROUTE_CASES[case]
+    planes = [standard_circle(256, 256)]
+    fields = _route_fields(tris, sd, **more)
+    ot.reset_launches()
+    got = ot.bake(convert.bake_input(planes, 1, **sampler, **fields))
+    counts = ot.launches()
+    for r in want:
+        assert counts[f"route.{r}"] > 0, (r, counts)
+    _assert_equal(got, ot.bake(convert.bake_input(planes, 1, **sampler,
+                                                  **fields), device="cpu"))
+
+
+def test_nearest_sides_on_card(cuda):
+    """The nearest filter's phase-1 side map on the card equals the CPU's
+    (same class planes, moved to the card)."""
+    from omm_tpu_torch import twophase
+    tex = convert.texture([standard_circle(256, 256)], 1)
+    cfg = _cfg(filter=0)
+    tris = _tris(3, 8)
+    items = [(t, None) for t in tris]
+    a = twophase.resolve_nearest_phase1(tex, cfg, items, 6, cuda)
+    b = twophase.resolve_nearest_phase1(tex, cfg, items, 6, "cpu")
+    assert a is not None
+    for x, y in zip(a, b):
+        assert np.array_equal(x, y)

@@ -193,3 +193,70 @@ def test_is_zero_constants():
     for eps in (1e-6, 1e-5):
         assert np.array_equal(tll.is_zero(_t(v), eps).numpy(),
                               ll.is_zero(np, v, eps))
+
+
+def _texel_inputs(seed, n=3000, w=64, h=48, degenerate=False):
+    """Micro-triangles a few texels wide (lines when degenerate), one
+    texel of each window per row, near and past the plane's edges."""
+    rng = np.random.RandomState(seed)
+    size = np.array([w, h], np.float32)
+    base = rng.uniform(-3, [w + 3, h + 3], (n, 1, 2)).astype(np.float32)
+    if degenerate:
+        d = rng.uniform(-4, 4, (n, 1, 2)).astype(np.float32)
+        t = np.float32([0.0, 0.5, 1.0])[None, :, None]
+        tri = (base + d * t) / size
+    else:
+        tri = (base + rng.uniform(-2, 3, (n, 3, 2))) / size
+    tri = tri.astype(np.float32)
+    px = (np.floor(base[:, 0, 0]) + rng.randint(-1, 3, n)).astype(np.int32)
+    py = (np.floor(base[:, 0, 1]) + rng.randint(-1, 3, n)).astype(np.int32)
+    plane = rng.rand(h, w).astype(np.float32)
+    plane[rng.rand(h, w) < 0.3] = 0.5  # flat quads, level lines on texels
+    return tri, px, py, plane
+
+
+@pytest.mark.parametrize("degenerate", [False, True], ids=["tri", "line"])
+@pytest.mark.parametrize("mode", list(omm.TextureAddressMode),
+                         ids=lambda m: m.name)
+def test_level_line_texel_kernel_fuzz(mode, degenerate):
+    """The gathering kernel, both branches, every address mode: the
+    quads come through the port's texture addressing."""
+    from omm_tpu_torch import texture as ttex
+    from omm_tpu_torch import types as ttypes
+    tri, px, py, plane = _texel_inputs(int(mode) + 10 * degenerate,
+                                       degenerate=degenerate)
+    tex = ttex.Texture([plane], ttypes.TextureFormat.FP32)
+    info = tex.info[0]
+    rcp = (float(info.rcp_size[0]), float(info.rcp_size[1]))
+    tmode = ttypes.TextureAddressMode(int(mode))
+    aabb_s, aabb_e = tri.min(axis=1), tri.max(axis=1)
+    tp_np = ll.make_tri_params(np, tri)
+    want = ll.level_line_texel_kernel(
+        np, tri, tp_np, px[:, None, None], py[:, None, None], plane,
+        info.size, info.size_log2, info.is_pow2, rcp, mode, 0.5, 0.3,
+        degenerate, aabb_s=aabb_s, aabb_e=aabb_e)
+    got = tll.level_line_texel_kernel(
+        tll.make_tri_params(_t(tri)), _t(px)[:, None, None],
+        _t(py)[:, None, None], _t(plane), info, tmode, 0.5, 0.3,
+        degenerate=degenerate, aabb_s=_t(aabb_s), aabb_e=_t(aabb_e))
+    for gg, ww in zip(got, want):
+        assert np.array_equal(gg.numpy(), np.broadcast_to(ww, gg.shape))
+    assert (got[0] > 0).any() and (got[1] > 0).any()
+    if not degenerate:
+        for k, v in tll.make_tri_params(_t(tri)).items():
+            _same_f32(v, tp_np[k])
+
+
+def test_conservative_raster_mask_fuzz():
+    rng = np.random.RandomState(6)
+    n = 4000
+    q = (rng.uniform(0, 6, (n, 1, 2)) + rng.uniform(-3, 3, (n, 3, 2))
+         ).astype(np.float32)
+    q[: n // 8, 1] = q[: n // 8, 0]  # degenerate edges
+    x = np.arange(-1, 9, dtype=np.int32)[None, None, :]
+    y = np.arange(-1, 8, dtype=np.int32)[None, :, None]
+    want = ll.conservative_raster_mask(np, q, np.broadcast_to(x, (n, 9, 10)),
+                                       np.broadcast_to(y, (n, 9, 10)))
+    got = tll.conservative_raster_mask(_t(q), _t(x), _t(y))
+    assert np.array_equal(got.numpy(), want)
+    assert want.any() and not want.all()

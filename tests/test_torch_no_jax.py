@@ -2,8 +2,10 @@
 
 A subprocess installs an import hook that makes every import of jax,
 jaxlib or omm_tpu raise, then builds a descriptor with the port's own
-types and bakes it on the CPU through omm_tpu_torch.bake; the bake must
-succeed and none of the blocked modules may enter sys.modules.  This
+types and bakes it on the CPU through omm_tpu_torch.bake, then bakes it
+with the nearest filter and a line triangle through the degenerate
+route; the bakes must succeed and none of the blocked modules may enter
+sys.modules.  This
 cannot be checked in-process: tests/conftest.py imports jax.  An AST
 scan checks the same of every source file of the port and of
 chip_smoke.py, including imports on paths the bake does not take."""
@@ -51,7 +53,23 @@ desc = ot.BakeInputDesc(texture=tex, tex_coords=tc,
 res = ot.bake(desc, device="cpu")
 assert isinstance(res, ot.BakeResult)
 assert len(res.desc_array) == 2, res.desc_array
-assert ot.launches() == {"exact_classify": 0}
+counts = ot.launches()
+assert counts["exact_classify"] == 0 and counts["route.fast_path"] == 2
+
+# the nearest filter, and a line triangle through the degenerate route
+desc.runtime_sampler.filter = ot.types.TextureFilterMode.Nearest
+res = ot.bake(desc, device="cpu")
+assert len(res.desc_array) == 2, res.desc_array
+line = np.array([[0.2, 0.0], [0.2, 0.43], [0.2, 0.21]], np.float32)
+desc = ot.BakeInputDesc(texture=tex, tex_coords=line,
+                        index_buffer=np.arange(3, dtype=np.uint32),
+                        index_count=3, alpha_cutoff=0.5,
+                        max_subdivision_level=4,
+                        dynamic_subdivision_scale=0.0)
+ot.bake(desc, device="cpu")
+counts = ot.launches()
+assert counts["route.nearest_survivors"] == 2, counts
+assert counts["route.degenerate"] == 1, counts
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """ % (BLOCKED, REPO)
@@ -70,7 +88,8 @@ def _sources():
     for root, _, files in os.walk(pkg):
         out += [os.path.relpath(os.path.join(root, f), REPO)
                 for f in files if f.endswith(".py")]
-    return sorted(out) + ["chip_smoke.py", "tools/profile_torch_bake.py"]
+    return sorted(out) + ["chip_smoke.py", "tools/profile_torch_bake.py",
+                          "tools/time_torch_bake.py"]
 
 
 def _imported(tree):

@@ -1,14 +1,17 @@
 """Where the time of an omm_tpu_torch bake goes, on one CUDA card.
 
-    python tools/profile_torch_bake.py [--trace PATH]
+    python tools/profile_torch_bake.py [--workload W] [--trace PATH]
     python tools/profile_torch_bake.py --exact-vs DIR [DIR ...] [--rounds N]
 
-Runs the benchmark workload (chip_smoke.py's: 1024^2 FP32 clamp
-texture, 256 triangles, subdivision 9) through omm_tpu_torch.bake on
-cuda:0: 2 warm-up bakes, then one bake under torch.profiler.  Prints the
-wall seconds of the profiled bake, host time per stage label (omm.*),
-the host operations with the most self CPU time, device time per
-kernel, and the device's busy and idle shares of the bake's wall time.  With --trace, the Chrome trace is written to PATH.
+Runs one of chip_smoke.py's workloads through omm_tpu_torch.bake on
+cuda:0: "bench" (the default: 1024^2 FP32 clamp texture, 256
+triangles, subdivision 9), "nearest" (the same with the nearest filter)
+or "mixed" (its 312-triangle mesh over every linear route).  2 warm-up
+bakes, then one bake under torch.profiler.  Prints the wall seconds of
+the profiled bake, host time per stage and route label (omm.*), the
+work items per route, the host operations with the most self CPU time,
+device time per kernel, and the device's busy and idle shares of the
+bake's wall time.  With --trace, the Chrome trace is written to PATH.
 
 With --exact-vs it instead times the exact kernels built from each DIR
 (a csrc/ directory with an exact_classify.cu of the same launch
@@ -29,6 +32,8 @@ sys.path.insert(0, ROOT)
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=("bench", "nearest", "mixed"),
+                    default="bench")
     ap.add_argument("--trace", help="write the Chrome trace to this file")
     ap.add_argument("--exact-vs", metavar="DIR", nargs="+",
                     help="time the exact kernels built from each DIR "
@@ -47,23 +52,27 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    tex, uv_tris = chip_smoke._workload()
-    desc = chip_smoke._desc(tex, uv_tris)
+    desc, _ = chip_smoke._workload_desc(args.workload,
+                                        *chip_smoke._workload())
     for _ in range(2):
         ot.bake(desc, device=dev)
     torch.cuda.synchronize()
+    ot.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ot.bake(desc, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"profiled bake: {wall:.4f} s wall (profiler on)")
+    print(f"profiled {args.workload} bake: {wall:.4f} s wall (profiler on)")
+    print("items per route: " + ", ".join(
+        f"{k[6:]} {v}" for k, v in ot.launches().items()
+        if k.startswith("route.") and v))
     ev = prof.key_averages()
     print("host time per stage label (ms, inclusive):")
     for e in sorted(ev, key=lambda e: -e.cpu_time_total):
         if e.key.startswith("omm."):
-            print(f"  {e.key:18s} {e.cpu_time_total / 1e3:10.3f} "
+            print(f"  {e.key:22s} {e.cpu_time_total / 1e3:10.3f} "
                   f"x{e.count}")
     dev_us = 0.0
     rows = []
