@@ -49,6 +49,20 @@ and prints no result line):
   9. timing  the kernel's device time on the bench stream (torch.profiler
              over 50 launches) and its share of the bound; last, so that
              the profiler's tracing does not reach the timed bakes
+ 10. gpu     (runs before phase 9) the GPU baker's dispatch chain,
+             omm_tpu_torch.gpu.Pipeline().dispatch(cfg) on the card by
+             default, of the benchmark workload in channel 3 of a 1024^2
+             RGBA FP32 texture (channels 0-2: the plane transposed,
+             shifted and inverted), default flags and scratch budget: 2
+             warm-ups, 5 timed execute() calls, byte-equal, with 6 exact
+             launches per dispatch (2 scratch batches of 128 triangles,
+             chunks of 48, 48 and 32); the same with ComputeOnly (the
+             kernel's torch twin), byte-equal to the default engine with
+             no launch; byte-equal to a dispatch of the single-channel
+             plane and to PerformSetup then PerformBake twice on one
+             Pipeline; the chain recorded clean by RecordingRHI; 16
+             triangles on the card byte-equal, PostDispatchInfo with
+             stats included, to the dispatch on the CPU
 
 Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
 work items per route) are set to 0 just before its timed bakes and read
@@ -176,13 +190,54 @@ def _mixed_desc(tex, tris, levels):
     return desc
 
 
-WORKLOADS = ("bench", "nearest", "mixed")
+WORKLOADS = ("bench", "nearest", "mixed", "gpu")
+
+
+def _rgba(tex):
+    """The GPU workload's 1024^2 RGBA FP32 texture: the benchmark plane
+    in channel 3; the plane transposed, shifted and inverted in
+    channels 0-2."""
+    import omm_tpu_torch as ot
+    plane = tex.mips[0]
+    return ot.Texture([np.stack([plane.T, np.roll(plane, 17, axis=1),
+                                 np.float32(1.0) - plane, plane], axis=-1)],
+                      ot.TextureFormat.FP32)
+
+
+def _gpu_cfg(tex, uv_tris, flags=None):
+    """The GPU baker's DispatchConfigDesc of the benchmark triangles on
+    `tex` (alphaTextureChannel 3), default flags unless given."""
+    from omm_tpu_torch import gpu
+    n = len(uv_tris)
+    cfg = gpu.DispatchConfigDesc(
+        alpha_texture=tex, alpha_texture_channel=3,
+        tex_coords=np.concatenate(uv_tris).astype(np.float32),
+        index_buffer=np.arange(3 * n, dtype=np.uint32), index_count=3 * n,
+        alpha_cutoff=0.5, max_subdivision_level=SUBDIV,
+        dynamic_subdivision_scale=0.0)
+    if flags is not None:
+        cfg.bake_flags = flags
+    return cfg
+
+
+def _bake(desc, device="cuda"):
+    """desc's BakeResult on `device`: omm_tpu_torch.bake for a
+    BakeInputDesc, the GPU baker's dispatch chain for a
+    DispatchConfigDesc."""
+    import omm_tpu_torch as ot
+    if isinstance(desc, ot.gpu.DispatchConfigDesc):
+        return ot.gpu.Pipeline().dispatch(desc, device).execute()[0]
+    return ot.bake(desc, device)
 
 
 def _workload_desc(name, tex, uv_tris):
     """(descriptor, micro-triangles) of a workload on the benchmark
-    texture and triangles: "bench", "nearest" (the nearest filter) or
-    "mixed" (the 312-triangle mesh over every linear route)."""
+    texture and triangles: "bench", "nearest" (the nearest filter),
+    "mixed" (the 312-triangle mesh over every linear route) or "gpu"
+    (the GPU baker's DispatchConfigDesc of the bench triangles on the
+    RGBA texture)."""
+    if name == "gpu":
+        return _gpu_cfg(_rgba(tex), uv_tris), len(uv_tris) * 4 ** SUBDIV
     if name == "mixed":
         tris, levels, _ = _mixed_tris(uv_tris)
         return _mixed_desc(tex, tris, levels), sum(4 ** lv for lv in levels)
@@ -269,18 +324,18 @@ def slot_streams(tex, uvs, cfg, subdiv, n, dev):
 
 
 def _timed_bakes(desc, utri, what, card):
-    """2 warm-up bakes, then 5 timed ones (each ending with the result on
-    the host) with every count set to 0 just before them: (counts after
-    the 5, times, results, summary)."""
+    """2 warm-up bakes (`_bake`), then 5 timed ones (each ending with the
+    result on the host) with every count set to 0 just before them:
+    (counts after the 5, times, results, summary)."""
     import omm_tpu_torch as ot
     for _ in range(2):
-        ot.bake(desc)
+        _bake(desc)
     torch.cuda.synchronize()
     ot.reset_launches()
     times, results = [], []
     for _ in range(5):
         t0 = time.perf_counter()
-        results.append(ot.bake(desc))  # numpy arrays: on the host
+        results.append(_bake(desc))  # numpy arrays: on the host
         times.append(time.perf_counter() - t0)
     counts = ot.launches()
     best, med = min(times), statistics.median(times)
@@ -301,10 +356,9 @@ def _timed_bakes(desc, utri, what, card):
 def _card_equals_cpu(desc_fn, what):
     """Bake desc_fn() on the card and on the CPU (the port's plain
     path); fail unless the BakeResults are byte-equal."""
-    import omm_tpu_torch as ot
-    r_card = ot.bake(desc_fn())
+    r_card = _bake(desc_fn())
     t0 = time.perf_counter()
-    r_cpu = ot.bake(desc_fn(), device="cpu")
+    r_cpu = _bake(desc_fn(), device="cpu")
     if not _results_equal(r_card, r_cpu):
         raise SystemExit(f"{what}: the BakeResult on the card differs from "
                          "the CPU bake")
@@ -339,6 +393,76 @@ def _check_shape(res, n_tris):
             or len(res.array_data) != nd * nbytes):
         raise SystemExit("descriptors or array_data have the wrong shape")
     return nd
+
+
+def gpu_phase(tex, uv_tris, card):
+    """Phase 10: the GPU baker's dispatch chain at full width.  Returns
+    (the default engine's counts after its 5 timed dispatches, its
+    summary, ComputeOnly's summary)."""
+    import dataclasses
+
+    from omm_tpu_torch import gpu
+    F = gpu.GpuBakeFlags
+    cfg, utri = _workload_desc("gpu", tex, uv_tris)
+    counts, _, res, summary = _timed_bakes(cfg, utri, "gpu dispatch", card)
+    _check_shape(res[-1], N_TRIS)
+    if counts["exact_classify"] != 6 * 5:
+        raise SystemExit(f"{counts['exact_classify']} exact launches in 5 "
+                         "dispatches: want 6 per dispatch")
+    co_cfg = dataclasses.replace(cfg, bake_flags=F.PerformSetupAndBake
+                                 | F.ComputeOnly)
+    co_counts, _, co_res, co_summary = _timed_bakes(
+        co_cfg, utri, "gpu ComputeOnly dispatch", card)
+    if co_counts["exact_classify"] != 0:
+        raise SystemExit("the ComputeOnly dispatches launched the exact "
+                         "kernel")
+    if not _results_equal(co_res[0], res[0]):
+        raise SystemExit("the ComputeOnly dispatch differs from the "
+                         "default engine's")
+    if not _results_equal(_bake(dataclasses.replace(cfg, alpha_texture=tex)),
+                          res[0]):
+        raise SystemExit("the channel-3 dispatch differs from a dispatch "
+                         "of the single-channel plane")
+    pipe = gpu.Pipeline()
+    none, _ = pipe.dispatch(dataclasses.replace(
+        cfg, bake_flags=F.PerformSetup)).execute()
+    if none is not None:
+        raise SystemExit("a setup-only dispatch returned a result")
+    for k in range(2):
+        r, _ = pipe.dispatch(dataclasses.replace(
+            cfg, bake_flags=F.PerformBake)).execute()
+        if not _results_equal(r, res[0]):
+            raise SystemExit(f"bake-only dispatch {k} after PerformSetup "
+                             "differs from PerformSetupAndBake")
+    chain = pipe.dispatch(cfg)
+    rec = gpu.RecordingRHI(
+        pipe.get_pre_dispatch_info(cfg).transient_pool_buffer_sizes)
+    gpu.record_chain(chain, rec)
+    level9 = [lb for lb in rec.labels
+              if lb.startswith("Batch ") and lb.endswith(f" Level {SUBDIV}")]
+    if rec.labels != [p.label for p in chain.passes] or len(level9) != 2:
+        raise SystemExit(f"recorded labels {rec.labels}: want the passes' "
+                         f"labels with two 'Batch b Level {SUBDIV}' passes")
+    print(f"gpu chain recorded clean: {rec.dispatch_count} dispatches "
+          f"{json.dumps(rec.labels)}, high water {rec.high_water}")
+    sub = _gpu_cfg(cfg.alpha_texture, uv_tris[:16],
+                   F.PerformSetupAndBake | F.EnablePostDispatchInfoStats)
+    r_card, p_card = pipe.dispatch(sub).execute()
+    t0 = time.perf_counter()
+    r_cpu, p_cpu = pipe.dispatch(sub, "cpu").execute()
+    if not _results_equal(r_card, r_cpu) or p_card != p_cpu:
+        raise SystemExit("16-triangle gpu dispatch: the card differs from "
+                         "the CPU")
+    _check_shape(r_card, 16)
+    print(f"16-triangle gpu dispatch: BakeResult and PostDispatchInfo on "
+          f"the card byte-equal to the CPU's ({time.perf_counter() - t0:.1f}"
+          f" s on the CPU); {p_card}", flush=True)
+    print(f"gpu dispatch: default engine best {summary['best_mutri_s']:.2f}"
+          f" median {summary['median_mutri_s']:.2f} M utri/s, ComputeOnly "
+          f"best {co_summary['best_mutri_s']:.2f} median "
+          f"{co_summary['median_mutri_s']:.2f} M utri/s ({card})",
+          flush=True)
+    return counts, summary, co_summary
 
 
 def main():
@@ -484,6 +608,9 @@ def main():
     _card_equals_cpu(aabb_desc, "16-triangle AABB-testing bake")
     if ot.launches()["route.host_engine"] == 0:
         raise SystemExit("the AABB bake did not run the host engine")
+
+    # ---- 10. gpu (before 9, which stays last) ----
+    gpu_counts, gpu_sum, co_sum = gpu_phase(tex, uv_tris, card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -496,9 +623,11 @@ def main():
           f"({card})", flush=True)
 
     by_path = {"bench": launches, "nearest": near_counts["exact_classify"],
-               "mixed": mix_counts["exact_classify"]}
+               "mixed": mix_counts["exact_classify"],
+               "gpu": gpu_counts["exact_classify"], "gpu_compute_only": 0}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
-                                "mixed": mix_sum}, "card": card}))
+                                "mixed": mix_sum, "gpu": gpu_sum,
+                                "gpu_compute_only": co_sum}, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",

@@ -4,7 +4,9 @@ A port of `omm_tpu`'s `bake(desc, backend="pallas")` to torch: the
 linear-filter, level-line two-phase engine, with the exact
 classification stage as a hand-written CUDA kernel for Hopper, and the
 routes off its fast path (nearest filter, line triangles, slivers, wide
-windows, low subdivision levels, the AABB debug kernels) as torch ops.  The
+windows, low subdivision levels, the AABB debug kernels) as torch ops;
+and of its GPU-baker dispatch chain (`gpu.Pipeline`), whose default
+engine runs the same kernel and whose ComputeOnly engine its twin.  The
 JAX package `omm_tpu` stays the reference; this package imports nothing
 of it and never imports jax: it keeps its own copies of the host code it
 needs, under the JAX package's module names (`types`, `texture`,
@@ -13,20 +15,23 @@ needs, under the JAX package's module names (`types`, `texture`,
     import omm_tpu_torch as ot
     res = ot.bake(desc)                # on the CUDA card
     # byte-equal to omm_tpu.bake(desc, backend="pallas")
+    res, post = ot.gpu.Pipeline().dispatch(cfg).execute()
+    # byte-equal to omm_tpu.gpu.Pipeline().dispatch(cfg, backend=...)
 
-`bake` runs on "cuda" unless the caller passes device="cpu", where the
-exact stage runs its plain torch twin; asking for "cuda" without a card
-raises.  `convert` builds the port's input from the numpy arrays and
-enum values a JAX-package descriptor holds, and turns a result into
-plain numpy arrays and ints.
+`bake` and `gpu.Pipeline.dispatch` run on "cuda" unless the caller
+passes device="cpu", where the exact stage runs its plain torch twin;
+asking for "cuda" without a card raises.  `convert` builds the port's
+input from the numpy arrays and enum values a JAX-package descriptor
+holds, and turns a result into plain numpy arrays and ints.
 """
 from .texture import Texture
 from .types import BakeInputDesc, BakeResult, TextureFormat
 
-from . import routes
+from . import gpu, routes
 from .bake import bake
 from .batch import classify_work_items_batches
 from .kernels import exact as exact_kernel
+from .stats import collect_stats, decode_states, get_stats
 
 
 def launches() -> dict:
@@ -45,4 +50,5 @@ def reset_launches() -> None:
 
 
 __all__ = ["BakeInputDesc", "BakeResult", "Texture", "TextureFormat", "bake",
-           "classify_work_items_batches", "launches", "reset_launches"]
+           "classify_work_items_batches", "collect_stats", "decode_states",
+           "get_stats", "gpu", "launches", "reset_launches"]

@@ -1042,29 +1042,31 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
                                            device=device)
         for c, res in zip(chunks, outs):
             for i, st in zip(c, res):
-                if isinstance(st, PackedStates):
-                    items[i].set_packed_states(st)
-                else:
-                    items[i].states = st
+                set_states(items[i], st)
     elif nearest:
         for level, idxs in _by_level(items, ~degen).items():
             res = classify.classify_nearest_survivors_batch(
                 tex, cfg, [(items[i].uv_tri, items[i].states) for i in idxs],
                 level, device)
             for i, st in zip(idxs, res):
-                _set_states(items[i], st)
+                set_states(items[i], st)
     # what no pass above took: the line triangles, or every item of a bake
     # without level lines; the engine routes each by the configuration
     rest = np.flatnonzero(degen) if (linear_ll or nearest) \
         else range(len(items))
     for i in rest:
         it = items[i]
-        _set_states(it, engine.resample_fine_item(
+        set_states(it, engine.resample_fine_item(
             tex, cfg, it.uv_tri, it.subdivision_level, it.states, device))
 
 
-def _set_states(it, st):
-    if st is not it.states:  # an identity keeps the item's caches
+def set_states(it, st):
+    """Install a classification result on a work item: a PackedStates as
+    its packed rows, an array as its states (unless it is the item's
+    own: an identity keeps the item's caches)."""
+    if isinstance(st, PackedStates):
+        it.set_packed_states(st)
+    elif st is not it.states:
         it.states = st
 
 

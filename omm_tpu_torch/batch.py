@@ -80,14 +80,15 @@ def run_stage_ab(bp, uv_flat, active, subdiv, all_active):
                     all_active=all_active)
 
 
-def run_stage_c(bp, res, mip, uv_flat, ccw, subdiv, cfg):
+def run_stage_c(bp, res, mip, uv_flat, ccw, subdiv, cfg, exact=None):
     w, h = bp["mips"][mip]
     Hb, Wb = bp["HW"][mip]
     return stage_c_mip(
         bp["planes"][mip], uv_flat, ccw, res["ids"], res["slots"][mip],
         res["padMs"][mip], subdiv=subdiv, w=w, h=h, pad=bp["pads"][mip],
         ntx=bp["ntxs"][mip], H=Hb, W=Wb, rcp=bp["rcps"][mip],
-        alpha_cutoff=float(cfg.alpha_cutoff), period=bp["periods"][mip])
+        alpha_cutoff=float(cfg.alpha_cutoff), period=bp["periods"][mip],
+        exact=exact)
 
 
 def item_tables(uv_arr: np.ndarray, device):
@@ -100,7 +101,7 @@ def item_tables(uv_arr: np.ndarray, device):
 
 
 def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
-               device):
+               device, exact):
     """Classify items[fast] (all on the fast path) into out[fast]."""
     T = len(fast)
     M = get_num_micro_triangles(subdiv)
@@ -120,7 +121,8 @@ def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
     with record_function("omm.stage_ab"):
         res = run_stage_ab(bp, uv_flat, active, subdiv, all_active)
     with record_function("omm.stage_c"):
-        mip_counts = [run_stage_c(bp, res, mi, uv_flat, ccw, subdiv, cfg)
+        mip_counts = [run_stage_c(bp, res, mi, uv_flat, ccw, subdiv, cfg,
+                                  exact)
                       for mi in range(texture.mip_count)]
     with record_function("omm.stage_d"):
         packed = stage_d(res["sides"], res["nodes"], res["ids"], mip_counts,
@@ -145,7 +147,7 @@ def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
 
 
 def classify_work_items_batches(texture, cfg, batches, subdiv, *,
-                                device="cuda"):
+                                device="cuda", exact=None):
     """Classify several batches of work items on `device`.
 
     batches: lists of (uv_tri (3, 2) fp32, states (M,) uint8 or None);
@@ -153,7 +155,10 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     state UnknownOpaque are classified.  subdiv: one level for every
     batch, or one per batch.  device: "cuda" (the default; raises where
     there is no card) runs the exact stage's CUDA kernel, "cpu" its
-    torch twin.
+    torch twin.  exact: the exact stage's engine, as
+    `kernels.exact.exact_counts` takes it: None (the device decides), or
+    "torch" for the twin on any device, the GPU baker's ComputeOnly
+    engine.
 
     Returns per batch the list of results: a PackedStates (serialize's
     2-bit rows) for every fast-path item of a batch whose fast-path
@@ -217,7 +222,7 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
             routes.count("fast_path", len(fast))
             _run_batch(texture, cfg, items, sd, fast, out,
                        all(mins[i] == UO for i in fast), precomps[sd],
-                       device)
+                       device, exact)
     for items, out, i, sd in slow:
         st = items[i][1]
         if st is None:

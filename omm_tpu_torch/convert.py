@@ -2,9 +2,11 @@
 
 The port shares no type with the JAX package.  A JAX-package descriptor
 holds numpy arrays and enum values; `bake_input` builds the port's
-`BakeInputDesc` from those arrays and the enums' integer values, and
+`BakeInputDesc` and `dispatch_config` its GPU baker's
+`DispatchConfigDesc` from those arrays and the enums' integer values.
 `result_to_numpy` turns a `BakeResult` of either package into a plain
-dict of numpy arrays and ints, so that results compare across packages.
+dict of numpy arrays and ints, and `post_to_dict` a `PostDispatchInfo`
+into a dict of ints, so that results compare across packages.
 
 The JAX package caches each texture's device planes in
 `texture._omm_dev_cache`: the padded plane under a ("tiles", ...) key and
@@ -15,9 +17,12 @@ both packages then compute on identical state.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .gpu.baker import DispatchConfigDesc, GpuBakeFlags
 from .planes import tex_cache
 from .texture import Texture
 from .types import (AlphaMode, BakeFlags, BakeInputDesc, Format, IndexFormat,
@@ -41,6 +46,16 @@ _ENUM_FIELDS = {
 }
 
 
+#: DispatchConfigDesc fields that hold an enum value, with the port's enum
+_GPU_ENUM_FIELDS = {
+    "bake_flags": GpuBakeFlags,
+    "alpha_cutoff_less_equal": OpacityState,
+    "alpha_cutoff_greater": OpacityState,
+    "global_format": Format,
+    "unknown_state_promotion": UnknownStatePromotion,
+}
+
+
 def texture(planes, texture_format, flags=0, alpha_cutoff=-1.0) -> Texture:
     """The port's Texture from numpy mip planes and integer enum values
     (the JAX package's Texture holds them as `mips`, `format`, `flags`
@@ -48,6 +63,21 @@ def texture(planes, texture_format, flags=0, alpha_cutoff=-1.0) -> Texture:
     return Texture([np.asarray(p) for p in planes],
                    TextureFormat(int(texture_format)),
                    TextureFlags(int(flags)), float(alpha_cutoff))
+
+
+def _sampler(addressing_mode, filter, border_alpha) -> SamplerDesc:
+    sampler = SamplerDesc()
+    if addressing_mode is not None:
+        sampler.addressing_mode = TextureAddressMode(int(addressing_mode))
+    if filter is not None:
+        sampler.filter = TextureFilterMode(int(filter))
+    sampler.border_alpha = float(border_alpha)
+    return sampler
+
+
+def _enums(fields: dict, enums: dict) -> dict:
+    return {k: enums[k](int(v)) if k in enums else v
+            for k, v in fields.items()}
 
 
 def bake_input(planes, texture_format, *, texture_flags=0,
@@ -61,16 +91,24 @@ def bake_input(planes, texture_format, *, texture_flags=0,
     (None keeps SamplerDesc's default); fields: any other BakeInputDesc
     field by name, enums as ints (or either package's enum members)."""
     tex = texture(planes, texture_format, texture_flags, texture_alpha_cutoff)
-    sampler = SamplerDesc()
-    if addressing_mode is not None:
-        sampler.addressing_mode = TextureAddressMode(int(addressing_mode))
-    if filter is not None:
-        sampler.filter = TextureFilterMode(int(filter))
-    sampler.border_alpha = float(border_alpha)
-    for name, enum in _ENUM_FIELDS.items():
-        if name in fields:
-            fields[name] = enum(int(fields[name]))
-    return BakeInputDesc(texture=tex, runtime_sampler=sampler, **fields)
+    return BakeInputDesc(texture=tex, runtime_sampler=_sampler(
+        addressing_mode, filter, border_alpha), **_enums(fields, _ENUM_FIELDS))
+
+
+def dispatch_config(planes, texture_format, *, texture_flags=0,
+                    texture_alpha_cutoff=-1.0, addressing_mode=None,
+                    filter=None, border_alpha=0.0,
+                    **fields) -> DispatchConfigDesc:
+    """The port's gpu.DispatchConfigDesc from numpy arrays and integer
+    enum values, as `bake_input` builds a BakeInputDesc: planes (mips of
+    (h, w) or (h, w, channels) arrays) and the texture's arguments
+    become `alpha_texture`; the sampler is given as ints; fields: any
+    other DispatchConfigDesc field by name, `bake_flags` as an int of
+    GpuBakeFlags and the other enums as ints."""
+    tex = texture(planes, texture_format, texture_flags, texture_alpha_cutoff)
+    return DispatchConfigDesc(alpha_texture=tex, runtime_sampler=_sampler(
+        addressing_mode, filter, border_alpha),
+        **_enums(fields, _GPU_ENUM_FIELDS))
 
 
 def result_to_numpy(res) -> dict:
@@ -89,6 +127,12 @@ def result_to_numpy(res) -> dict:
             "index_format": int(res.index_format),
             "index_histogram": rows(res.index_histogram, "count"),
             "triangle_area": np.asarray(res.triangle_area, np.float32)}
+
+
+def post_to_dict(post) -> dict:
+    """A PostDispatchInfo of either package as a dict of ints."""
+    return {f.name: int(getattr(post, f.name))
+            for f in dataclasses.fields(post)}
 
 
 def cache_from_numpy(texture, entries: dict, device) -> int:

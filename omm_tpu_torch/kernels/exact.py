@@ -15,8 +15,8 @@ TSA x TSA region, or past the padded plane's edge, gives 0.0, as the
 one-hot select and the halo tiles' zero fill do on the TPU.
 
 `exact_counts` takes the twin for CPU tensors.  For CUDA tensors it
-launches the kernel, or raises; `exact="torch"` selects the twin there
-for comparisons.  `exact_work` counts what the stage must do for a slot
+launches the kernel, or raises; `exact="torch"` selects the twin there:
+the GPU baker's ComputeOnly engine, and comparisons.  `exact_work` counts what the stage must do for a slot
 stream, and `bound` turns that into the least time the card could take.
 """
 from __future__ import annotations

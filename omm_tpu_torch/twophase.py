@@ -209,11 +209,11 @@ def slot_stream(uv_flat, ids, slot, padM, *, subdiv, w, h, pad, ntx,
 
 
 def stage_c_mip(planeP, uv_flat, ccw, ids, slot, padM, *, subdiv, w, h,
-                pad, ntx, H, W, rcp, alpha_cutoff, period=None):
+                pad, ntx, H, W, rcp, alpha_cutoff, period=None, exact=None):
     """Exact-stage counts of one mip for the K survivors `ids` (flat
     t*M + m) placed at `slot`: build the slot stream, run the exact
-    stage and gather (above, below) int32 (K,) back into survivor
-    order."""
+    stage (`exact_counts`, with its `exact=` engine choice) and gather
+    (above, below) int32 (K,) back into survivor order."""
     if ids.shape[0] == 0:
         z = torch.zeros(0, dtype=torch.int32, device=ids.device)
         return z, z
@@ -223,7 +223,7 @@ def stage_c_mip(planeP, uv_flat, ccw, ids, slot, padM, *, subdiv, w, h,
     above, below = exact_counts(
         planeP, block_tile, ids_slot, uv_flat, ccw, subdiv=subdiv, pad=pad,
         ntx=ntx, size=(w, h), period=period, H=H, W=W, rcp=rcp,
-        alpha_cutoff=alpha_cutoff)
+        alpha_cutoff=alpha_cutoff, exact=exact)
     return above.reshape(-1)[slot], below.reshape(-1)[slot]
 
 

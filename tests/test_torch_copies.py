@@ -4,7 +4,8 @@ descriptor defaults (types), Options, validation messages,
 setup_work_items, finalize_items (the whole host tail, compared as
 serialized BakeResults), the native library's functions, texture
 addressing and sampling, the bird curve, geometry, the coarse SAT pass,
-MT19937 and the bit tricks."""
+MT19937 and the bit tricks, the debug stats, and the GPU baker's static
+resources."""
 import dataclasses
 import importlib
 
@@ -20,6 +21,7 @@ from omm_tpu import bit_tricks as jbits  # noqa: E402
 from omm_tpu import engine as jengine  # noqa: E402
 from omm_tpu import geom as jgeom  # noqa: E402
 from omm_tpu import native as jnative  # noqa: E402
+from omm_tpu import stats as jstats  # noqa: E402
 from omm_tpu import texture as jtexture  # noqa: E402
 from omm_tpu import types as jtypes  # noqa: E402
 from omm_tpu.mt19937 import MT19937 as JMT  # noqa: E402
@@ -29,6 +31,7 @@ from omm_tpu_torch import convert  # noqa: E402
 from omm_tpu_torch import engine as tengine  # noqa: E402
 from omm_tpu_torch import geom as tgeom  # noqa: E402
 from omm_tpu_torch import native as tnative  # noqa: E402
+from omm_tpu_torch import stats as tstats  # noqa: E402
 from omm_tpu_torch import texture as ttexture  # noqa: E402
 from omm_tpu_torch import types as ttypes  # noqa: E402
 from omm_tpu_torch.mt19937 import MT19937 as TMT  # noqa: E402
@@ -483,3 +486,96 @@ def test_raster_line_walks():
             assert np.array_equal(
                 traster.bresenham_line_cells(p0[k], p1[k], size),
                 jraster.bresenham_line_cells(p0[k], p1[k], size))
+
+
+@pytest.mark.parametrize("case", ["default", "no_special_indices",
+                                  "rejection_8bit", "two_state"])
+def test_stats(case):
+    """stats.collect_stats / get_stats (with and without triangle areas)
+    and decode_states on seeded results of the host tail."""
+    n = 24
+    fields = dict(tex_coords=_tris(n, 19).reshape(-1, 2),
+                  index_buffer=np.arange(3 * n, dtype=np.uint32),
+                  index_count=3 * n, max_subdivision_level=3,
+                  dynamic_subdivision_scale=0.0)
+    fields.update(FINALIZE[case])
+    jdesc, _ = _descs(**fields)
+    jopts = jbake.Options.from_flags(jdesc.bake_flags)
+    items = jbake.setup_work_items(jdesc, jopts)
+    rng = np.random.RandomState(20)
+    for it in items:
+        pool = _states_pool(4 ** it.subdivision_level, rng)
+        st = pool[rng.randint(len(pool))].copy()
+        it.states = st & 1 if jdesc.format == omm.Format.OC1_2_State else st
+    res = jbake.finalize_items(jdesc, jopts, items)
+    assert len(res.desc_array) > 0
+    asdict = dataclasses.asdict
+    for area in (None, res.triangle_area):
+        assert asdict(tstats.collect_stats(res, area)) == \
+            asdict(jstats.collect_stats(res, area))
+    for use_area in (False, True):
+        got = asdict(tstats.get_stats(res, use_area))
+        assert got == asdict(jstats.get_stats(res, use_area))
+        assert got["known_area_metric"] != 0.0 or not use_area
+    for d in res.desc_array:
+        assert np.array_equal(
+            tstats.decode_states(res.array_data, d.offset,
+                                 d.subdivision_level, d.format),
+            jstats.decode_states(res.array_data, d.offset,
+                                 d.subdivision_level, d.format))
+    data = rng.randint(0, 256, 4096).astype(np.uint8)
+    for level in range(6):
+        for fmt in (1, 2):
+            off = int(rng.randint(0, 4096 - 4 ** level // 2))
+            assert np.array_equal(tstats.decode_states(data, off, level, fmt),
+                                  jstats.decode_states(data, off, level, fmt))
+
+
+@pytest.mark.parametrize("resource", ["STATIC_VERTEX_BUFFER",
+                                      "STATIC_INDEX_BUFFER"])
+def test_static_resource_blobs(resource):
+    """gpu.static_data: the blobs of levels 0-9 equal the JAX package's."""
+    from omm_tpu.gpu import static_data as jsd
+    from omm_tpu_torch.gpu import static_data as tsd
+    want = jsd.get_static_resource_data(resource)
+    got = tsd.get_static_resource_data(resource)
+    assert got["data"].dtype == want["data"].dtype
+    assert np.array_equal(got["data"], want["data"])
+    assert got["offsets"] == want["offsets"] and got["size"] == want["size"]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 5])
+def test_static_buffers_consistent(level):
+    """tests/test_static_data.py's check on the port's copy: every
+    bird-index primitive tessellates to index2bary's corners."""
+    from omm_tpu_torch.gpu.static_data import (static_index_buffer,
+                                               static_vertex_buffer)
+    vb = static_vertex_buffer(level)
+    ib = static_index_buffer(level)
+    n = 1 << level
+    assert len(vb) == (n + 1) * (n + 2) // 2
+    assert len(ib) == 3 * 4 ** level
+    assert ib.max() < len(vb)
+    uv0, uv1, uv2 = tbird.index2bary(np.arange(4 ** level, dtype=np.uint32),
+                                     level)
+    scale = np.float32(1.0 / n)
+    for prim in range(4 ** level):
+        corners = []
+        for k in range(3):
+            packed = int(vb[ib[3 * prim + k]])
+            i, j = packed & 0xFFFF, packed >> 16
+            corners.append((i * scale, (n - j) * scale))
+        got = {tuple(np.round(c, 6)) for c in corners}
+        want = {tuple(np.round(c, 6)) for c in
+                [uv0[prim], uv1[prim], uv2[prim]]}
+        assert got == want, (level, prim, got, want)
+
+
+def test_static_resource_blob():
+    """tests/test_static_data.py's blob check on the port's copy."""
+    from omm_tpu_torch.gpu.static_data import get_static_resource_data
+    d = get_static_resource_data("STATIC_INDEX_BUFFER")
+    assert len(d["offsets"]) == 10
+    assert d["size"] == d["data"].nbytes
+    with pytest.raises(ValueError):
+        get_static_resource_data("NOPE")

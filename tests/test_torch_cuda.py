@@ -1,8 +1,9 @@
 """omm_tpu_torch on a CUDA card: the hand-written exact kernel against
 its torch twin (windows of up to and over 32 texels, periodic address
 modes), the bake on the card (its default device) against the bake on
-the CPU, and the benchmark bake on the card against the JAX package's
-numpy oracle.  The port's inputs are built through convert from the
+the CPU, the benchmark bake on the card against the JAX package's
+numpy oracle, and the GPU baker's dispatch on the card (default engine
+and ComputeOnly) against the dispatch on the CPU.  The port's inputs are built through convert from the
 same numpy arrays as the JAX package's.
 
 Every test is marked `cuda` and skips without a card.  This file
@@ -318,3 +319,28 @@ def test_nearest_sides_on_card(cuda):
     assert a is not None
     for x, y in zip(a, b):
         assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("flags", [3, 3 | 4 | 8],
+                         ids=["default", "compute_only"])
+def test_gpu_dispatch_on_card_equals_cpu(flags, cuda):
+    """gpu.Pipeline().dispatch(cfg) on the card (its default device),
+    byte-equal, post-dispatch info included, to the dispatch on the CPU;
+    the default engine launches the exact kernel, ComputeOnly never."""
+    rgba = np.stack([standard_circle(256, 256), sine_fp32(256, 256),
+                     standard_circle(256, 256).T.copy(),
+                     sine_fp32(256, 256).T.copy()], axis=-1)
+    tris = _tris(6, 11) + [_LINE]
+    fields = dict(_route_fields(tris, 7), alpha_texture_channel=2,
+                  bake_flags=flags)
+    ot.reset_launches()
+    got = ot.gpu.Pipeline().dispatch(
+        convert.dispatch_config([rgba], 1, **fields)).execute()
+    launched = ot.launches()
+    assert launched["route.fast_path"] == 6
+    assert launched["route.degenerate"] == 1
+    assert (launched["exact_classify"] > 0) == (flags == 3)
+    want = ot.gpu.Pipeline().dispatch(
+        convert.dispatch_config([rgba], 1, **fields), device="cpu").execute()
+    _assert_equal(got[0], want[0])
+    assert convert.post_to_dict(got[1]) == convert.post_to_dict(want[1])

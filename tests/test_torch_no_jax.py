@@ -4,7 +4,8 @@ A subprocess installs an import hook that makes every import of jax,
 jaxlib or omm_tpu raise, then builds a descriptor with the port's own
 types and bakes it on the CPU through omm_tpu_torch.bake, then bakes it
 with the nearest filter and a line triangle through the degenerate
-route; the bakes must succeed and none of the blocked modules may enter
+route, and dispatches a GPU-baker chain of an RGBA texture on the CPU;
+the bakes must succeed and none of the blocked modules may enter
 sys.modules.  This
 cannot be checked in-process: tests/conftest.py imports jax.  An AST
 scan checks the same of every source file of the port and of
@@ -70,6 +71,21 @@ ot.bake(desc, device="cpu")
 counts = ot.launches()
 assert counts["route.nearest_survivors"] == 2, counts
 assert counts["route.degenerate"] == 1, counts
+
+# the GPU baker's dispatch chain, both engines
+rgba = np.stack([alpha, alpha.T, 1 - alpha, alpha], axis=-1)
+for flags in (3, 3 | 4 | 8):
+    cfg = ot.gpu.DispatchConfigDesc(
+        bake_flags=ot.gpu.GpuBakeFlags(flags),
+        alpha_texture=ot.Texture([rgba], ot.TextureFormat.FP32),
+        alpha_texture_channel=1, tex_coords=tc,
+        index_buffer=np.arange(6, dtype=np.uint32), index_count=6,
+        max_subdivision_level=4, dynamic_subdivision_scale=0.0)
+    res, post = ot.gpu.Pipeline().dispatch(cfg, device="cpu").execute()
+    assert post.out_omm_desc_size_in_bytes == 8 * len(res.desc_array) > 0
+    assert sum(ot.get_stats(res).__dict__[k] for k in (
+        "total_opaque", "total_transparent", "total_unknown_opaque",
+        "total_unknown_transparent")) == 2 * 4 ** 4
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """ % (BLOCKED, REPO)

@@ -3,10 +3,12 @@
     python tools/profile_torch_bake.py [--workload W] [--trace PATH]
     python tools/profile_torch_bake.py --exact-vs DIR [DIR ...] [--rounds N]
 
-Runs one of chip_smoke.py's workloads through omm_tpu_torch.bake on
-cuda:0: "bench" (the default: 1024^2 FP32 clamp texture, 256
+Runs one of chip_smoke.py's workloads on cuda:0: through
+omm_tpu_torch.bake "bench" (the default: 1024^2 FP32 clamp texture, 256
 triangles, subdivision 9), "nearest" (the same with the nearest filter)
-or "mixed" (its 312-triangle mesh over every linear route).  2 warm-up
+or "mixed" (its 312-triangle mesh over every linear route); or "gpu",
+the bench triangles through the GPU baker's dispatch chain on its RGBA
+texture (the DescPatch pass is the label omm.desc_patch).  2 warm-up
 bakes, then one bake under torch.profiler.  Prints the wall seconds of
 the profiled bake, host time per stage and route label (omm.*), the
 work items per route, the host operations with the most self CPU time,
@@ -32,8 +34,8 @@ sys.path.insert(0, ROOT)
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("bench", "nearest", "mixed"),
-                    default="bench")
+    ap.add_argument("--workload", choices=("bench", "nearest", "mixed",
+                                           "gpu"), default="bench")
     ap.add_argument("--trace", help="write the Chrome trace to this file")
     ap.add_argument("--exact-vs", metavar="DIR", nargs="+",
                     help="time the exact kernels built from each DIR "
@@ -55,13 +57,13 @@ def main():
     desc, _ = chip_smoke._workload_desc(args.workload,
                                         *chip_smoke._workload())
     for _ in range(2):
-        ot.bake(desc, device=dev)
+        chip_smoke._bake(desc, dev)
     torch.cuda.synchronize()
     ot.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ot.bake(desc, device=dev)
+        chip_smoke._bake(desc, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(f"profiled {args.workload} bake: {wall:.4f} s wall (profiler on)")
