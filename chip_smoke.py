@@ -63,12 +63,28 @@ and prints no result line):
              Pipeline; the chain recorded clean by RecordingRHI; 16
              triangles on the card byte-equal, PostDispatchInfo with
              stats included, to the dispatch on the CPU
+ 11. farm    (runs before phase 9) the multi-device bake of the
+             benchmark workload: (a) ot.bake(desc, mesh=make_mesh()), a
+             slot per card, and (b) a mesh of two slots on cuda:0 (two
+             threads on one card), each 2 warm-ups and 5 timed bakes in
+             turns with the plain bake, byte-equal to it, with 6 exact
+             launches per bake (slices of 256, or 128 + 128, in batches of
+             48/48/.../16 or 48/48/32); (c) the exact farm: two worker
+             processes (this script with --farm-worker) joined by
+             torch.distributed over gloo on a localhost port, both on the
+             card, each timing classify_partition and bake_partition of
+             its half (3 exact launches each) and all_gather_object-ing
+             its blobs, times and launches; merge_exact of the gathered
+             blobs must be byte-equal to the plain bake, and the partition
+             blobs' dedup_loss within its bound; the classify wall time of
+             the farm beside one process classifying every item
 
 Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
 work items per route) are set to 0 just before its timed bakes and read
-just after.
+just after (the mesh paths: around each timed bake).
 jax and the JAX package omm_tpu are blocked from import for the whole
-run: the port must not need them.  Everything is reached through
+run, the farm's worker processes included: the port must not need
+them.  Everything is reached through
 omm_tpu_torch.  The checks against the JAX package's numpy oracle run
 on the card as tests/test_torch_cuda.py.
 The second-to-last line is the kernels' JSON record, the last line the
@@ -92,6 +108,7 @@ class _NoJax(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _NoJax())
 
 import json  # noqa: E402
+import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -323,6 +340,14 @@ def slot_streams(tex, uvs, cfg, subdiv, n, dev):
     return (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw), kw, what
 
 
+def _summary(utri, times):
+    """Best and median seconds and micro-triangles per second."""
+    best, med = min(times), statistics.median(times)
+    return {"utri": utri, "best_s": best, "median_s": med,
+            "best_mutri_s": utri / best / 1e6,
+            "median_mutri_s": utri / med / 1e6}
+
+
 def _timed_bakes(desc, utri, what, card):
     """2 warm-up bakes (`_bake`), then 5 timed ones (each ending with the
     result on the host) with every count set to 0 just before them:
@@ -338,10 +363,8 @@ def _timed_bakes(desc, utri, what, card):
         results.append(_bake(desc))  # numpy arrays: on the host
         times.append(time.perf_counter() - t0)
     counts = ot.launches()
-    best, med = min(times), statistics.median(times)
-    summary = {"utri": utri, "best_s": best, "median_s": med,
-               "best_mutri_s": utri / best / 1e6,
-               "median_mutri_s": utri / med / 1e6}
+    summary = _summary(utri, times)
+    best, med = summary["best_s"], summary["median_s"]
     print(f"{what}: {desc.index_count // 3} tris ({utri} utri): best "
           f"{best:.4f} s median {med:.4f} s -> {utri / best / 1e6:.2f} "
           f"M utri/s best, {utri / med / 1e6:.2f} M utri/s median; exact "
@@ -463,6 +486,225 @@ def gpu_phase(tex, uv_tris, card):
           f"{co_summary['median_mutri_s']:.2f} M utri/s ({card})",
           flush=True)
     return counts, summary, co_summary
+
+
+def _slot_batches(n_items, mesh):
+    """Exact launches of a mesh bake of n_items fresh fast-path items at
+    SUBDIV: each slot's contiguous slice in batches of BATCH
+    (parallel.shard.classify_slices)."""
+    from omm_tpu_torch.bake import split_tail_light
+    k = mesh.size
+    return sum(len(split_tail_light(list(range(s * n_items // k,
+                                               (s + 1) * n_items // k)),
+                                    [BATCH])) for s in range(k))
+
+
+def mesh_phase(desc, utri, card):
+    """Phase 11 (a), (b): the plain bake, the mesh of every card and two
+    slots on cuda:0, 2 warm-ups each, then 5 rounds in turns, each bake
+    with the counts set to 0 just before it and read just after.
+    Returns (exact launches of each mesh path's 5 bakes, summaries, the
+    plain bake's result)."""
+    import omm_tpu_torch as ot
+    paths = {"plain": None, "mesh": ot.parallel.make_mesh(),
+             "mesh2": ot.parallel.make_mesh(["cuda:0", "cuda:0"])}
+    for _ in range(2):
+        for mesh in paths.values():
+            ot.bake(desc, mesh=mesh)
+    torch.cuda.synchronize()
+    times = {k: [] for k in paths}
+    results = {k: [] for k in paths}
+    launches = dict.fromkeys(paths, 0)
+    for _ in range(5):
+        for name, mesh in paths.items():
+            ot.reset_launches()
+            t0 = time.perf_counter()
+            results[name].append(ot.bake(desc, mesh=mesh))
+            times[name].append(time.perf_counter() - t0)
+            launches[name] += ot.launches()["exact_classify"]
+    ref = results["plain"][0]
+    summaries = {}
+    for name, mesh in paths.items():
+        if not all(_results_equal(r, ref) for r in results[name]):
+            raise SystemExit(f"a timed {name} bake differs from the plain "
+                             "bake")
+        want = 5 * _slot_batches(N_TRIS, mesh or ot.parallel.make_mesh(
+            ["cuda:0"]))
+        if launches[name] != want:
+            raise SystemExit(f"{launches[name]} exact launches in 5 {name} "
+                             f"bakes: want {want}")
+        summaries[name] = _summary(utri, times[name])
+        print(f"{name} bake ({mesh.size if mesh else 0} slots): best "
+              f"{summaries[name]['best_s']:.4f} s median "
+              f"{summaries[name]['median_s']:.4f} s, "
+              f"{summaries[name]['best_mutri_s']:.2f} M utri/s best; exact "
+              f"launches {launches[name]} in 5 bakes, byte-equal to the "
+              f"plain bake ({card})", flush=True)
+        print(f"{name} times s: {json.dumps([round(t, 6) for t in times[name]])}")
+    return ({k: launches[k] for k in ("mesh", "mesh2")},
+            {k: summaries[k] for k in ("mesh", "mesh2")}, ref)
+
+
+FARM_PROCS = 2
+FARM_ROUNDS = 5
+FARM_TIMEOUT_S = 300
+
+
+def farm_worker(rank, n, coord, outdir):
+    """One process of phase 11 (c) (run as this script with --farm-worker
+    RANK N HOST:PORT DIR): join the farm over gloo, classify this rank's
+    half of the benchmark items on the card (a warm-up, then FARM_ROUNDS
+    rounds that start at a barrier, each with the counts set to 0 just
+    before it and read just after), bake its half of the triangles, and
+    all_gather_object the blobs, times and launches; rank 0 writes them
+    to DIR."""
+    import torch.distributed as dist
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch.parallel import multihost as mh
+    if not torch.cuda.is_available():
+        raise SystemExit("farm worker: no CUDA device")
+    # the host's cores shared between the workers' torch CPU ops
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    if mh.init_distributed(coord, n, rank) != (rank, n):
+        raise SystemExit("farm worker: wrong rank or world size")
+    tex, uv_tris = _workload()
+    desc = _desc(tex, uv_tris)
+    part = mh.partition_items(mh.item_costs(desc).tolist(), n)[rank]
+    mh.classify_partition(desc, part)
+    rounds = []
+    for _ in range(FARM_ROUNDS):
+        dist.barrier()
+        ot.reset_launches()
+        t0 = time.perf_counter()
+        xblob = mh.classify_partition(desc, part)
+        t1 = time.perf_counter()
+        rounds.append((t0, t1, ot.launches()["exact_classify"]))
+    t0 = time.perf_counter()
+    blob = mh.bake_partition(
+        desc, mh.partition_items([4 ** SUBDIV] * N_TRIS, n)[rank])
+    bake_s = time.perf_counter() - t0
+    got = [None] * n
+    dist.all_gather_object(got, {"rank": rank, "rounds": rounds,
+                                 "bake_s": bake_s, "xblob": xblob,
+                                 "blob": blob})
+    if rank == 0:
+        for g in got:
+            for key in ("xblob", "blob"):
+                with open(os.path.join(outdir, f"{key}{g['rank']}.bin"),
+                          "wb") as f:
+                    f.write(g.pop(key))
+        with open(os.path.join(outdir, "farm.json"), "w") as f:
+            json.dump(got, f)
+    dist.destroy_process_group()
+    if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
+        raise SystemExit("farm worker: jax or the JAX package was imported")
+    print(f"farm worker {rank}: classify rounds "
+          f"{[round(b - a, 6) for a, b, _ in rounds]} s, launches "
+          f"{[k for _, _, k in rounds]}, bake_partition {bake_s:.4f} s",
+          flush=True)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def farm_phase(desc, ref, card):
+    """Phase 11 (c): one process classifying every item (the baseline),
+    then FARM_PROCS worker processes on the card; their merged blobs must
+    equal the plain bake `ref`.  Returns (exact launches of the workers'
+    timed rounds, summary)."""
+    import tempfile
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch.parallel import multihost as mh
+    everything = mh.Partition(0, np.arange(len(mh.item_costs(desc))))
+    mh.classify_partition(desc, everything)
+    single = []
+    for _ in range(FARM_ROUNDS):
+        t0 = time.perf_counter()
+        mh.classify_partition(desc, everything)
+        single.append(time.perf_counter() - t0)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    coord = f"127.0.0.1:{_free_port()}"
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--farm-worker",
+             str(r), str(FARM_PROCS), coord, outdir], cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(FARM_PROCS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=FARM_TIMEOUT_S)[0]
+                            .decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"a farm worker ran past {FARM_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print("\n".join(out.strip().splitlines()[-3:]))
+            if p.returncode != 0:
+                raise SystemExit(f"farm worker {r} exited {p.returncode}:\n"
+                                 f"{out[-3000:]}")
+        with open(os.path.join(outdir, "farm.json")) as f:
+            got = json.load(f)
+        xblobs, blobs = [], []
+        for r in range(FARM_PROCS):
+            for key, dst in (("xblob", xblobs), ("blob", blobs)):
+                with open(os.path.join(outdir, f"{key}{r}.bin"), "rb") as f:
+                    dst.append(f.read())
+
+    per_round = [[k for _, _, k in g["rounds"]] for g in got]
+    want = [_slot_batches(len(p.item_indices), ot.parallel.make_mesh(
+        ["cuda:0"])) for p in mh.partition_items(
+        mh.item_costs(desc).tolist(), FARM_PROCS)]
+    if any(ks != [w] * FARM_ROUNDS for ks, w in zip(per_round, want)):
+        raise SystemExit(f"farm exact launches per round {per_round}: want "
+                         f"{want} per process")
+    walls = [max(g["rounds"][i][1] for g in got)
+             - min(g["rounds"][i][0] for g in got)
+             for i in range(FARM_ROUNDS)]
+    t0 = time.perf_counter()
+    merged = mh.merge_exact(desc, xblobs)
+    merge_s = time.perf_counter() - t0
+    if not _results_equal(merged, ref):
+        raise SystemExit("merge_exact of the farm's blobs differs from the "
+                         "plain bake")
+    rep = mh.dedup_loss(mh.gather_results(blobs))
+    if not 0 <= rep.loss <= rep.bound:
+        raise SystemExit(f"dedup loss {rep.loss} outside [0, {rep.bound}]")
+    summary = {"procs": FARM_PROCS,
+               "classify_wall_best_s": min(walls),
+               "classify_wall_median_s": statistics.median(walls),
+               "single_classify_best_s": min(single),
+               "single_classify_median_s": statistics.median(single),
+               "merge_s": merge_s,
+               "bake_partition_s": [g["bake_s"] for g in got],
+               "dedup": {"per_partition": rep.per_partition,
+                         "global_distinct": rep.global_distinct,
+                         "loss": rep.loss, "bound": rep.bound}}
+    print(f"farm: {FARM_PROCS} processes on the card, classify wall best "
+          f"{min(walls):.4f} s median {statistics.median(walls):.4f} s "
+          f"against one process's best {min(single):.4f} s median "
+          f"{statistics.median(single):.4f} s; exact launches per round "
+          f"{per_round[0][0]} + {per_round[1][0]}; merge_exact "
+          f"{merge_s:.4f} s, byte-equal to the plain bake; bake_partition "
+          f"{[round(t, 4) for t in summary['bake_partition_s']]} s; dedup "
+          f"loss {rep.loss} <= bound {rep.bound} ({card})", flush=True)
+    print(f"farm classify walls s: {json.dumps([round(t, 6) for t in walls])}"
+          f", one process s: {json.dumps([round(t, 6) for t in single])}")
+    return sum(sum(ks) for ks in per_round), summary
 
 
 def main():
@@ -611,6 +853,11 @@ def main():
 
     # ---- 10. gpu (before 9, which stays last) ----
     gpu_counts, gpu_sum, co_sum = gpu_phase(tex, uv_tris, card)
+
+    # ---- 11. farm (before 9) ----
+    mesh_launches, mesh_sums, ref = mesh_phase(desc, N_TRIS * 4 ** SUBDIV,
+                                               card)
+    farm_launches, farm_sum = farm_phase(desc, ref, card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -624,10 +871,15 @@ def main():
 
     by_path = {"bench": launches, "nearest": near_counts["exact_classify"],
                "mixed": mix_counts["exact_classify"],
-               "gpu": gpu_counts["exact_classify"], "gpu_compute_only": 0}
+               "gpu": gpu_counts["exact_classify"], "gpu_compute_only": 0,
+               "mesh": mesh_launches["mesh"],
+               "mesh2": mesh_launches["mesh2"], "farm": farm_launches}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
-                                "gpu_compute_only": co_sum}, "card": card}))
+                                "gpu_compute_only": co_sum,
+                                "mesh": mesh_sums["mesh"],
+                                "mesh2": mesh_sums["mesh2"],
+                                "farm": farm_sum}, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",
@@ -643,4 +895,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--farm-worker"]:
+        farm_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                    sys.argv[5])
+    else:
+        main()

@@ -17,17 +17,22 @@ needs, under the JAX package's module names (`types`, `texture`,
     # byte-equal to omm_tpu.bake(desc, backend="pallas")
     res, post = ot.gpu.Pipeline().dispatch(cfg).execute()
     # byte-equal to omm_tpu.gpu.Pipeline().dispatch(cfg, backend=...)
+    res = ot.bake(desc, mesh=ot.parallel.make_mesh())  # every card
+    # byte-equal to omm_tpu.bake(desc, backend="pallas", mesh=...)
 
 `bake` and `gpu.Pipeline.dispatch` run on "cuda" unless the caller
 passes device="cpu", where the exact stage runs its plain torch twin;
 asking for "cuda" without a card raises.  `convert` builds the port's
 input from the numpy arrays and enum values a JAX-package descriptor
-holds, and turns a result into plain numpy arrays and ints.
+holds, and turns a result into plain numpy arrays and ints.  `parallel`
+splits a bake over a mesh of devices (`shard`) and over processes
+joined by torch.distributed (`multihost`, the bake farm); `serialize`
+writes and reads the JAX package's blobs, byte for byte.
 """
 from .texture import Texture
 from .types import BakeInputDesc, BakeResult, TextureFormat
 
-from . import gpu, routes
+from . import gpu, parallel, routes, serialize
 from .bake import bake
 from .batch import classify_work_items_batches
 from .kernels import exact as exact_kernel
@@ -38,17 +43,20 @@ def launches() -> dict:
     """Kernel launches made in this process, by kernel name, and the work
     items each classification route took ("route.<name>", see
     `routes`)."""
-    out = {"exact_classify": exact_kernel.LAUNCHES}
-    out.update({f"route.{k}": v for k, v in routes.COUNTS.items()})
+    with routes.LOCK:
+        out = {"exact_classify": exact_kernel.LAUNCHES}
+        out.update({f"route.{k}": v for k, v in routes.COUNTS.items()})
     return out
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count and every route's count to 0."""
-    exact_kernel.LAUNCHES = 0
-    routes.reset()
+    with routes.LOCK:
+        exact_kernel.LAUNCHES = 0
+        routes.reset()
 
 
 __all__ = ["BakeInputDesc", "BakeResult", "Texture", "TextureFormat", "bake",
            "classify_work_items_batches", "collect_stats", "decode_states",
-           "get_stats", "gpu", "launches", "reset_launches"]
+           "get_stats", "gpu", "launches", "parallel", "reset_launches",
+           "serialize"]

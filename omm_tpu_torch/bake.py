@@ -6,8 +6,8 @@ The host half is the port's copy of `omm_tpu/bake.py`: work items
 `setup_work_items`, `validate_workload_size` and `finalize_items` with
 every stage it runs (promotion, exact and near-duplicate dedup,
 compression, histograms, spatial sort, serialization).  Not carried
-over: the speculative serialize blob, the `OMM_BAKE_TRACE` marks, the
-backend switch and the mesh.  The fine classification follows the
+over: the speculative serialize blob, the `OMM_BAKE_TRACE` marks and
+the backend switch.  The fine classification follows the
 pallas backend's routes (`classify_items`): the two-phase engine
 (`batch.classify_work_items_batches`, batched per subdivision level as
 bake.py batches it), and the `classify` and `engine` passes for the
@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 from torch.profiler import record_function
 
-from . import classify, engine, geom, native
+from . import classify, engine, geom, host, native
 from .batch import classify_work_items_batches
 from .bit_tricks import xy_to_morton
 from .log import Logger
@@ -986,24 +986,41 @@ def _config(desc: BakeInputDesc, opts: Options) -> engine.ResampleConfig:
 
 
 def classify_items(desc: BakeInputDesc, opts: Options, items: list,
-                   device) -> None:
+                   device, mesh=None, sel=None) -> None:
     """The classification half of bake(), mutating `items` in place, in
-    the order of the JAX package's pallas route (bake.py:1166-1326): the
-    coarse pass; for the nearest filter, the phase-1 window resolve of
+    the order of the JAX package's pallas route (bake.py:1130-1326): with
+    a mesh, the fresh fast-path items over the mesh (`_classify_on_mesh`);
+    the coarse pass; for the nearest filter, the phase-1 window resolve of
     each subdivision level; the two-phase engine's batches for the
     linear-filter, level-line, non-degenerate items; the nearest-filter
     survivors through `classify.classify_nearest_survivors_batch` (one
     stream per level); then every other item through
     `engine.resample_fine_item`: line triangles (the linear filter's
     degenerate pass, or the nearest filter's), and without level lines
-    the AABB debug kernels."""
+    the AABB debug kernels.  sel: a bool mask over `items` (default all)
+    that restricts every pass to the selected items; the exact farm
+    classifies only the items its process owns (parallel/multihost.py)."""
     tex = desc.texture
     cfg = _config(desc, opts)
     if opts.enable_aabb_testing and not opts.disable_level_line_intersection:
         raise BakeError(
             Result.INVALID_ARGUMENT,
             "EnableAABBTesting requires DisableLevelLineIntersection")
-    for it in items:
+    sel = (np.ones(len(items), bool) if sel is None
+           else np.asarray(sel, bool).copy())
+    degen = (np.asarray(geom.is_degenerate(
+        np.stack([it.uv_tri for it in items]))).reshape(len(items))
+        if items else np.zeros(0, bool))
+    linear_ll = (cfg.filter == TextureFilterMode.Linear
+                 and not cfg.disable_level_line)
+    nearest = cfg.filter == TextureFilterMode.Nearest
+
+    if mesh is not None and linear_ll and not cfg.disable_fine:
+        # sharded items skip every later pass: the engine's descent
+        # resolves what the coarse pass would, and the exact stage the rest
+        sel &= ~_classify_on_mesh(tex, cfg, items, sel & ~degen, mesh)
+    for i in np.flatnonzero(sel):
+        it = items[i]
         st = engine.resample_coarse_item(tex, cfg, it.uv_tri,
                                          it.subdivision_level, it.states)
         if st is not it.states:  # identity (no SAT): keep _fresh valid
@@ -1011,14 +1028,8 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
     if cfg.disable_fine or not items:
         return
 
-    degen = np.asarray(geom.is_degenerate(
-        np.stack([it.uv_tri for it in items]))).reshape(len(items))
-    linear_ll = (cfg.filter == TextureFilterMode.Linear
-                 and not cfg.disable_level_line)
-    nearest = cfg.filter == TextureFilterMode.Nearest
-
     if nearest:
-        for level, idxs in _by_level(items, ~degen).items():
+        for level, idxs in _by_level(items, sel & ~degen).items():
             res = resolve_nearest_phase1(
                 tex, cfg, [(items[i].uv_tri, items[i].states) for i in idxs],
                 level, device)
@@ -1028,7 +1039,7 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
 
     if linear_ll:
         chunks, levels = [], []
-        for level, idxs in sorted(_by_level(items, ~degen).items(),
+        for level, idxs in sorted(_by_level(items, sel & ~degen).items(),
                                   reverse=True):
             per_item = get_num_micro_triangles(level)
             cs = split_tail_light(idxs,
@@ -1044,7 +1055,7 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
             for i, st in zip(c, res):
                 set_states(items[i], st)
     elif nearest:
-        for level, idxs in _by_level(items, ~degen).items():
+        for level, idxs in _by_level(items, sel & ~degen).items():
             res = classify.classify_nearest_survivors_batch(
                 tex, cfg, [(items[i].uv_tri, items[i].states) for i in idxs],
                 level, device)
@@ -1052,12 +1063,40 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
                 set_states(items[i], st)
     # what no pass above took: the line triangles, or every item of a bake
     # without level lines; the engine routes each by the configuration
-    rest = np.flatnonzero(degen) if (linear_ll or nearest) \
-        else range(len(items))
+    rest = np.flatnonzero(sel & degen if (linear_ll or nearest) else sel)
     for i in rest:
         it = items[i]
         set_states(it, engine.resample_fine_item(
             tex, cfg, it.uv_tri, it.subdivision_level, it.states, device))
+
+
+def _classify_on_mesh(tex, cfg, items, cand, mesh) -> np.ndarray:
+    """Classify the fresh, fast-path eligible, winding-stable items among
+    `cand` (a bool mask) over the mesh, level by level, each level padded
+    to a multiple of the mesh size with copies of its first item
+    (omm_tpu/bake.py:1136-1164).  Returns the mask of the items it
+    classified."""
+    from .parallel.shard import classify_slices
+
+    fresh = np.array([getattr(it, "_fresh", False)
+                      or int(it.states.min()) == UO for it in items], bool)
+    done = np.zeros(len(items), bool)
+    for level, idxs in _by_level(items, cand & fresh).items():
+        uvs = [items[i].uv_tri for i in idxs]
+        lg = host._group_level(tex, uvs, level)
+        # the batched form of the JAX bake's per-item test
+        # (_fast_path_ok and winding_stable)
+        mask = host._fast_path_mask(tex, cfg, np.stack(uvs), level, lg)
+        ok = [i for i, m in zip(idxs, mask) if m]
+        if not ok:
+            continue
+        padded = ok + ok[:1] * ((-len(ok)) % mesh.size)
+        outs = classify_slices(mesh, tex, cfg,
+                               [items[i].uv_tri for i in padded], level)
+        for i, st in zip(ok, outs):
+            set_states(items[i], st)
+            done[i] = True
+    return done
 
 
 def set_states(it, st):
@@ -1079,7 +1118,7 @@ def _by_level(items, sel) -> dict:
 
 
 def bake(desc: BakeInputDesc, device="cuda", logger=None,
-         allocator=None) -> BakeResult:
+         allocator=None, mesh=None) -> BakeResult:
     """Bake `desc` with the fine classification on `device`, a torch
     device: "cuda" (the default) runs the hand-written exact kernel and
     raises where there is no CUDA device; "cpu" runs its plain twin.
@@ -1087,7 +1126,10 @@ def bake(desc: BakeInputDesc, device="cuda", logger=None,
     for every descriptor, whichever routes its items take
     (`classify_items`): the two-phase engine, the dense and survivors
     level-line passes, line triangles, the nearest filter, and the AABB
-    debug kernels."""
+    debug kernels.  mesh: a `parallel.make_mesh` mesh; with the linear
+    filter and level lines, its slots classify the fresh fast-path items
+    (byte-equal to `omm_tpu.bake(desc, backend="pallas", mesh=...)`),
+    and every other item runs on `device`."""
     device = check_device(device)
     log = logger or Logger()
     opts = Options.from_flags(desc.bake_flags)
@@ -1099,6 +1141,6 @@ def bake(desc: BakeInputDesc, device="cuda", logger=None,
         items = setup_work_items(desc, opts, log)
         validate_workload_size(desc, opts, items, log)
     with record_function("omm.classify"):
-        classify_items(desc, opts, items, device)
+        classify_items(desc, opts, items, device, mesh=mesh)
     with record_function("omm.finalize"):
         return finalize_items(desc, opts, items, allocator=allocator)

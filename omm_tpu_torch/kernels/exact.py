@@ -23,12 +23,21 @@ from __future__ import annotations
 
 import torch
 
+from .. import routes
 from ..bird_torch import bary_cols, corner_cols, tri6_of
 from ..host import B, TILE, wrap_origin
 from ..levelline import (f32, level_line_values_kernel, tri_params)
 
-#: kernel launches made by `exact_counts` in this process
+#: kernel launches made by `exact_counts` in this process, counted under
+#: `routes.LOCK` (mesh slots launch from several threads)
 LAUNCHES = 0
+
+
+def count_launch() -> None:
+    """Add one launch to LAUNCHES."""
+    global LAUNCHES
+    with routes.LOCK:
+        LAUNCHES += 1
 
 
 def derive_slot_geometry(ids, uv6, ccw, bt, *, subdiv, pad, ntx, size,
@@ -322,7 +331,6 @@ def exact_counts(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv, pad,
     uv6: (T, 6) fp32 item UVs; ccw: (T,) int32 0/1 winding.
     CPU tensors run the plain twin.  CUDA tensors launch the kernel, or
     the twin when exact="torch"."""
-    global LAUNCHES
     if exact not in (None, "torch"):
         raise ValueError(f"exact must be None or 'torch', got {exact!r}")
     _check(planeP, block_tile, ids_slot, uv6, ccw, H, W)
@@ -343,7 +351,7 @@ def exact_counts(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv, pad,
         return above, below
     launch(cuda_library(), planeP, block_tile, ids_slot, uv6, ccw, above,
            below, **kw)
-    LAUNCHES += 1
+    count_launch()
     return above, below
 
 

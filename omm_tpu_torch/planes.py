@@ -12,6 +12,8 @@ keyed like the JAX package's `_omm_dev_cache` entries, so that
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +26,9 @@ from .texture import Texture
 PHASE1_MARGIN = f32(2.0 ** -14)
 
 _CACHE_ATTR = "_omm_torch_cache"
+#: makes the creation of a texture's cache one step for threads (mesh
+#: slots share the texture)
+_CACHE_LOCK = threading.Lock()
 
 
 def check_device(device) -> torch.device:
@@ -38,12 +43,14 @@ def check_device(device) -> torch.device:
 
 
 def tex_cache(texture: Texture, device) -> dict:
-    """The port's per-texture cache for one device."""
-    c = texture.__dict__.get(_CACHE_ATTR)
-    if c is None:
-        c = {}
-        setattr(texture, _CACHE_ATTR, c)
-    return c.setdefault(str(torch.device(device)), {})
+    """The port's per-texture cache for one device (one dict per texture
+    and device, whichever thread asks first)."""
+    with _CACHE_LOCK:
+        c = texture.__dict__.get(_CACHE_ATTR)
+        if c is None:
+            c = {}
+            setattr(texture, _CACHE_ATTR, c)
+        return c.setdefault(str(torch.device(device)), {})
 
 
 def plane_key(mip, addr_mode, pad, border_alpha, period):
@@ -63,11 +70,13 @@ def padded_plane(texture: Texture, mip: int, addr_mode, pad: int,
     address-mode period plus the apron in periodic modes)."""
     c = tex_cache(texture, device)
     key = plane_key(mip, addr_mode, pad, border_alpha, period)
-    if key not in c:
+    t = c.get(key)
+    if t is None:
         planeH = host.padded_plane(texture, mip, pad, addr_mode,
                                    border_alpha, period=period)
-        c[key] = torch.from_numpy(planeH).to(device)
-    return c[key]
+        # threads that raced here all get the first one stored
+        t = c.setdefault(key, torch.from_numpy(planeH).to(device))
+    return t
 
 
 def class_plane(planeP: torch.Tensor, Hb: int, Wb: int, cutoff: float,
@@ -98,8 +107,10 @@ def class_plane_cached(texture: Texture, mip: int, addr_mode, pad: int,
     c = tex_cache(texture, device)
     key = cls_key(mip, addr_mode, pad, Hb, Wb, cutoff, PHASE1_MARGIN,
                   border_alpha, period)
-    if key not in c:
+    t = c.get(key)
+    if t is None:
         planeP = padded_plane(texture, mip, addr_mode, pad, border_alpha,
                               period, device)
-        c[key] = class_plane(planeP, Hb, Wb, cutoff, PHASE1_MARGIN)
-    return c[key]
+        t = c.setdefault(key, class_plane(planeP, Hb, Wb, cutoff,
+                                          PHASE1_MARGIN))
+    return t

@@ -4,9 +4,13 @@
 launch counts, under "route.<name>".  Each route adds the items it
 classifies where it classifies them (an item with nothing left to
 classify is not counted); the nearest filter's two passes also count
-their micro-triangles.
+their micro-triangles.  Mesh slots count from worker threads, so every
+process-wide count, these and the kernels' launch counts, is read and
+written under LOCK.
 """
 from __future__ import annotations
+
+import threading
 
 NAMES = (
     "fast_path",          # two-phase engine, exact stage (batch._run_batch)
@@ -22,11 +26,17 @@ NAMES = (
 
 COUNTS = dict.fromkeys(NAMES, 0)
 
+#: guards COUNTS and the kernels' launch counts (re-entrant, so that
+#: `omm_tpu_torch.reset_launches` can call `reset` while holding it)
+LOCK = threading.RLock()
+
 
 def count(name: str, n: int = 1) -> None:
-    COUNTS[name] += int(n)
+    with LOCK:
+        COUNTS[name] += int(n)
 
 
 def reset() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
+    with LOCK:
+        for k in COUNTS:
+            COUNTS[k] = 0

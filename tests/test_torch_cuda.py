@@ -2,8 +2,10 @@
 its torch twin (windows of up to and over 32 texels, periodic address
 modes), the bake on the card (its default device) against the bake on
 the CPU, the benchmark bake on the card against the JAX package's
-numpy oracle, and the GPU baker's dispatch on the card (default engine
-and ComputeOnly) against the dispatch on the CPU.  The port's inputs are built through convert from the
+numpy oracle, the GPU baker's dispatch on the card (default engine
+and ComputeOnly) against the dispatch on the CPU, and the mesh bake
+(every card; two slots on one card) against the plain bake, with kernel
+launches from several threads all counted.  The port's inputs are built through convert from the
 same numpy arrays as the JAX package's.
 
 Every test is marked `cuda` and skips without a card.  This file
@@ -80,8 +82,9 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_twin(case, cuda):
+def _streams(case, cuda):
+    """The exact stage's (args, keyword arguments) of each mip of a
+    CASES entry, from the port's stage_ab on the card."""
     mk_tex, cfg, mk_tris, subdiv = CASES[case]
     tex, tris = mk_tex(), mk_tris()
     pre = batch.precompute(tex, tris, subdiv,
@@ -89,11 +92,10 @@ def test_kernel_matches_twin(case, cuda):
     bp = batch.batch_planes(tex, cfg, pre, cuda)
     uv_flat, ccw = batch.item_tables(np.stack(tris), cuda)
     res = batch.run_stage_ab(bp, uv_flat, None, subdiv, True)
+    out = []
     for mi in range(tex.mip_count):
         w, h = bp["mips"][mi]
         H, W = bp["HW"][mi]
-        if "wide" in case:  # more pairs per slot than a chunk
-            assert H * W > 32
         kw = dict(subdiv=subdiv, pad=bp["pads"][mi], ntx=bp["ntxs"][mi],
                   size=(w, h), period=bp["periods"][mi], H=H, W=W,
                   rcp=bp["rcps"][mi], alpha_cutoff=float(cfg.alpha_cutoff))
@@ -101,7 +103,15 @@ def test_kernel_matches_twin(case, cuda):
                               res["padMs"][mi], subdiv=subdiv, w=w, h=h,
                               pad=kw["pad"], ntx=kw["ntx"],
                               period=kw["period"])
-        args = (bp["planes"][mi], bt, ids, uv_flat, ccw)
+        out.append(((bp["planes"][mi], bt, ids, uv_flat, ccw), kw))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_twin(case, cuda):
+    for args, kw in _streams(case, cuda):
+        if "wide" in case:  # more pairs per slot than a chunk
+            assert kw["H"] * kw["W"] > 32
         before = exact.LAUNCHES
         ka, kb = exact.exact_counts(*args, **kw)
         torch.cuda.synchronize()
@@ -344,3 +354,42 @@ def test_gpu_dispatch_on_card_equals_cpu(flags, cuda):
         convert.dispatch_config([rgba], 1, **fields), device="cpu").execute()
     _assert_equal(got[0], want[0])
     assert convert.post_to_dict(got[1]) == convert.post_to_dict(want[1])
+
+
+@pytest.mark.parametrize("mesh", [None, ["cuda:0", "cuda:0"]],
+                         ids=["all_cards", "two_slots_one_card"])
+def test_mesh_bake_on_card_equals_plain(mesh, cuda):
+    """ot.bake over a mesh on the card (every card; two slots, two
+    threads, on cuda:0) is byte-equal to the plain bake on the card, with
+    the same exact launches (64 bench triangles: one batch of 48 and one
+    of 16, or 32 + 32 per slot)."""
+    _, tdesc, _ = _bench_desc(64)
+    ot.reset_launches()
+    want = ot.bake(tdesc)
+    plain = ot.launches()
+    ot.reset_launches()
+    got = ot.bake(tdesc, mesh=ot.parallel.make_mesh(mesh))
+    counts = ot.launches()
+    _assert_equal(got, want)
+    assert counts["route.fast_path"] == plain["route.fast_path"] == 64
+    assert counts["exact_classify"] == plain["exact_classify"] == 2
+
+
+def test_kernel_launches_add_up_across_threads(cuda):
+    """Eight threads launching the exact kernel on one card: every launch
+    counts, and every result equals the twin's."""
+    import concurrent.futures as cf
+
+    (args, kw), = _streams("clamp", cuda)
+    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+
+    def run(_):
+        outs = [exact.exact_counts(*args, **kw) for _ in range(25)]
+        torch.cuda.current_stream(cuda).synchronize()
+        return all(torch.equal(a, ta) and torch.equal(b, tb)
+                   for a, b in outs)
+
+    ot.reset_launches()
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        assert all(pool.map(run, range(8)))
+    assert ot.launches()["exact_classify"] == 8 * 25

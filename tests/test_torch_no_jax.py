@@ -4,9 +4,10 @@ A subprocess installs an import hook that makes every import of jax,
 jaxlib or omm_tpu raise, then builds a descriptor with the port's own
 types and bakes it on the CPU through omm_tpu_torch.bake, then bakes it
 with the nearest filter and a line triangle through the degenerate
-route, and dispatches a GPU-baker chain of an RGBA texture on the CPU;
-the bakes must succeed and none of the blocked modules may enter
-sys.modules.  This
+route, dispatches a GPU-baker chain of an RGBA texture on the CPU, and
+bakes over a mesh of two CPU slots, serializes the result and merges an
+exact farm of two partitions; the bakes must succeed and none of the
+blocked modules may enter sys.modules.  This
 cannot be checked in-process: tests/conftest.py imports jax.  An AST
 scan checks the same of every source file of the port and of
 chip_smoke.py, including imports on paths the bake does not take."""
@@ -86,6 +87,24 @@ for flags in (3, 3 | 4 | 8):
     assert sum(ot.get_stats(res).__dict__[k] for k in (
         "total_opaque", "total_transparent", "total_unknown_opaque",
         "total_unknown_transparent")) == 2 * 4 ** 4
+
+# a mesh bake over two CPU slots, a serialize round trip, an exact farm
+desc = ot.BakeInputDesc(texture=tex, tex_coords=tc,
+                        index_buffer=np.arange(6, dtype=np.uint32),
+                        index_count=6, alpha_cutoff=0.5,
+                        max_subdivision_level=5,
+                        dynamic_subdivision_scale=0.0)
+res = ot.bake(desc, device="cpu",
+              mesh=ot.parallel.make_mesh(["cpu", "cpu"]))
+blob = ot.serialize.serialize(ot.serialize.DeserializedDesc(
+    flags=1, input_descs=[desc], result_descs=[res]))
+back = ot.serialize.deserialize(blob)
+assert back.result_descs[0].desc_array == res.desc_array
+from omm_tpu_torch.parallel import multihost as mh
+parts = mh.partition_items(mh.item_costs(desc), 2)
+merged = mh.merge_exact(desc, [mh.classify_partition(desc, p, device="cpu")
+                               for p in parts])
+assert (merged.array_data == res.array_data).all()
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """ % (BLOCKED, REPO)
