@@ -78,10 +78,37 @@ and prints no result line):
              blobs must be byte-equal to the plain bake, and the partition
              blobs' dedup_loss within its bound; the classify wall time of
              the farm beside one process classifying every item
+ 12. surface (runs before phase 9) the library surface and the tools,
+             all on the card by default: (a) the benchmark workload
+             through ot.Baker().bake(desc) and ot.capi.omm_cpu_bake(bk,
+             desc) in turns with ot.bake(desc), 2 warm-ups and 5 timed
+             calls each, byte-equal to ot.bake's with 6 exact launches per
+             bake; (b) the vegetation scene (BASELINE.json config 5 at
+             examples/vegetation_scene.py's defaults: a 512^2 foliage
+             atlas, FP32 with the cutoff 0.5 embedded, 200 quads = 400
+             triangles over 6 UV variants, EnableNearDuplicateDetection)
+             through one Baker at subdivision 7 (the example's dynamic
+             subdivision scale, 2.0: levels 5-6) and at 9 with the scale
+             at 0 (every triangle at 9), 2 warm-ups and 5 timed bakes
+             each, byte-equal, round-tripped through
+             Baker.serialize(compress=True); the level-9 bakes must launch
+             the exact kernel; at each level the card's BakeResult is
+             byte-equal to Baker.bake(desc, device="cpu"); at level 7
+             integration.dump_debug_compare reports equal stats, and the
+             D3D12 and Vulkan build inputs agree; (c) the tools on the
+             level-7 scene's blob: cli bake on the card and with --device
+             cpu (the same JSON, byte-equal blobs), cli viewer with a
+             tweak, a ViewerSession re-baked on the card against one on
+             the CPU (equal stats, np.array_equal overlays from
+             debug.render_overlay, string-equal tui.render_ansi frames);
+             the exact launch count must grow across (c)
 
 Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
 work items per route) are set to 0 just before its timed bakes and read
-just after (the mesh paths: around each timed bake).
+just after (the mesh and surface paths: around each timed bake; the
+tools: around the whole of phase 12 c).  launches_by_path has a key for
+each path: surface.baker, surface.capi and surface.tools for phase 12
+(a) and (c), scene.level7 and scene.level9 for (b).
 jax and the JAX package omm_tpu are blocked from import for the whole
 run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
@@ -207,7 +234,86 @@ def _mixed_desc(tex, tris, levels):
     return desc
 
 
-WORKLOADS = ("bench", "nearest", "mixed", "gpu")
+# the vegetation scene at examples/vegetation_scene.py's defaults
+SCENE_ATLAS = 512
+SCENE_QUADS = 200
+SCENE_CUTOFF = 0.5
+
+
+def foliage_atlas(size: int = 512, seed: int = 7) -> np.ndarray:
+    """examples/vegetation_scene.py's foliage_atlas (that module imports
+    the JAX package, which this script blocks): leaf-cluster alpha, soft
+    elliptic leaves with serrated edges on a transparent background."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(size, dtype=np.float32),
+                         np.arange(size, dtype=np.float32), indexing="ij")
+    alpha = np.zeros((size, size), np.float32)
+    for _ in range(140):
+        cx, cy = rng.rand(2) * size
+        ang = rng.rand() * np.pi
+        la, lb = 8 + rng.rand() * 40, 4 + rng.rand() * 14
+        dx = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
+        dy = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
+        r = (dx / la) ** 2 + (dy / lb) ** 2
+        serration = 0.12 * np.sin(np.arctan2(dy, dx) * 9.0)
+        leaf = np.clip(1.2 - r + serration, 0.0, 1.0)
+        alpha = np.maximum(alpha, leaf.astype(np.float32))
+    return np.clip(alpha, 0.0, 1.0).astype(np.float32)
+
+
+def quad_mesh(n_quads: int, n_uv_variants: int = 6, seed: int = 3):
+    """examples/vegetation_scene.py's quad_mesh: n_quads quads whose UV
+    rectangles come from a pool of n_uv_variants."""
+    rng = np.random.RandomState(seed)
+    variants = []
+    for _ in range(n_uv_variants):
+        u0, v0 = rng.rand(2) * 0.5
+        du, dv = 0.2 + rng.rand(2) * 0.3
+        variants.append(np.array([[u0, v0], [u0, v0 + dv],
+                                  [u0 + du, v0], [u0 + du, v0 + dv]],
+                                 np.float32))
+    uvs = []
+    indices = []
+    for q in range(n_quads):
+        base = len(uvs)
+        uvs.extend(variants[rng.randint(n_uv_variants)])
+        indices.extend([base, base + 1, base + 2,
+                        base + 3, base + 1, base + 2])
+    return (np.asarray(uvs, np.float32),
+            np.asarray(indices, np.uint32))
+
+
+def _scene_desc(level, atlas=None, fixed=False):
+    """The vegetation scene's BakeInputDesc at subdivision `level`, as
+    examples/vegetation_scene.py builds it (atlas: its 512^2 plane, made
+    here unless given).  The example keeps the default dynamic
+    subdivision scale, 2.0, which puts this scene's triangles at levels
+    5-6 whatever the maximum above 6; fixed=True sets the scale to 0, so
+    that every triangle is baked at `level`."""
+    import omm_tpu_torch as ot
+    if atlas is None:
+        atlas = foliage_atlas(SCENE_ATLAS)
+    uvs, indices = quad_mesh(SCENE_QUADS)
+    tex = ot.Texture([atlas], ot.TextureFormat.FP32,
+                     alpha_cutoff=SCENE_CUTOFF)
+    desc = ot.BakeInputDesc(
+        texture=tex, tex_coords=uvs, index_buffer=indices,
+        index_count=len(indices), alpha_cutoff=SCENE_CUTOFF,
+        max_subdivision_level=level,
+        bake_flags=ot.BakeFlags.EnableNearDuplicateDetection)
+    if fixed:
+        desc.dynamic_subdivision_scale = 0.0
+    return desc
+
+
+def _result_utri(res) -> int:
+    """Micro-triangles of a result: 4^level of each triangle's OMM, 0
+    for a triangle with a special index."""
+    return sum(4 ** res.desc_array[int(i)].subdivision_level
+               for i in res.index_buffer if i >= 0)
+
+
+WORKLOADS = ("bench", "nearest", "mixed", "gpu", "scene")
 
 
 def _rgba(tex):
@@ -252,7 +358,11 @@ def _workload_desc(name, tex, uv_tris):
     texture and triangles: "bench", "nearest" (the nearest filter),
     "mixed" (the 312-triangle mesh over every linear route) or "gpu"
     (the GPU baker's DispatchConfigDesc of the bench triangles on the
-    RGBA texture)."""
+    RGBA texture); or "scene", the vegetation scene with every triangle
+    at SUBDIV (its own texture and triangles)."""
+    if name == "scene":
+        desc = _scene_desc(SUBDIV, fixed=True)
+        return desc, desc.index_count // 3 * 4 ** SUBDIV
     if name == "gpu":
         return _gpu_cfg(_rgba(tex), uv_tris), len(uv_tris) * 4 ** SUBDIV
     if name == "mixed":
@@ -499,6 +609,30 @@ def _slot_batches(n_items, mesh):
                                     [BATCH])) for s in range(k))
 
 
+def _in_turns(paths, rounds=5, warm=2):
+    """Call each of `paths` ({name: fn returning a BakeResult}) `warm`
+    times, then `rounds` rounds in turns, each call with the counts set
+    to 0 just before it and read just after: ({name: results}, {name:
+    times}, {name: each count summed over the rounds})."""
+    import omm_tpu_torch as ot
+    for _ in range(warm):
+        for fn in paths.values():
+            fn()
+    torch.cuda.synchronize()
+    results = {k: [] for k in paths}
+    times = {k: [] for k in paths}
+    counts = {k: {} for k in paths}
+    for _ in range(rounds):
+        for name, fn in paths.items():
+            ot.reset_launches()
+            t0 = time.perf_counter()
+            results[name].append(fn())
+            times[name].append(time.perf_counter() - t0)
+            for k, v in ot.launches().items():
+                counts[name][k] = counts[name].get(k, 0) + v
+    return results, times, counts
+
+
 def mesh_phase(desc, utri, card):
     """Phase 11 (a), (b): the plain bake, the mesh of every card and two
     slots on cuda:0, 2 warm-ups each, then 5 rounds in turns, each bake
@@ -508,20 +642,10 @@ def mesh_phase(desc, utri, card):
     import omm_tpu_torch as ot
     paths = {"plain": None, "mesh": ot.parallel.make_mesh(),
              "mesh2": ot.parallel.make_mesh(["cuda:0", "cuda:0"])}
-    for _ in range(2):
-        for mesh in paths.values():
-            ot.bake(desc, mesh=mesh)
-    torch.cuda.synchronize()
-    times = {k: [] for k in paths}
-    results = {k: [] for k in paths}
-    launches = dict.fromkeys(paths, 0)
-    for _ in range(5):
-        for name, mesh in paths.items():
-            ot.reset_launches()
-            t0 = time.perf_counter()
-            results[name].append(ot.bake(desc, mesh=mesh))
-            times[name].append(time.perf_counter() - t0)
-            launches[name] += ot.launches()["exact_classify"]
+    results, times, counts = _in_turns(
+        {name: (lambda mesh=mesh: ot.bake(desc, mesh=mesh))
+         for name, mesh in paths.items()})
+    launches = {k: c["exact_classify"] for k, c in counts.items()}
     ref = results["plain"][0]
     summaries = {}
     for name, mesh in paths.items():
@@ -707,6 +831,198 @@ def farm_phase(desc, ref, card):
     return sum(sum(ks) for ks in per_round), summary
 
 
+def surface_phase(desc, utri, card):
+    """Phase 12 (a): the benchmark workload through ot.Baker and
+    ot.capi in turns with ot.bake, every result byte-equal to ot.bake's
+    with 6 exact launches per bake.  Returns (exact launches of the
+    Baker's and of capi's timed bakes by name, summaries)."""
+    import omm_tpu_torch as ot
+    bk = ot.Baker()
+    cbk = ot.capi.omm_create_baker()
+    results, times, counts = _in_turns({
+        "plain": lambda: ot.bake(desc),
+        "baker": lambda: bk.bake(desc),
+        "capi": lambda: ot.capi.omm_cpu_bake(cbk, desc)})
+    launches = {k: c["exact_classify"] for k, c in counts.items()}
+    ref = results["plain"][0]
+    summaries = {}
+    for name in results:
+        if not all(_results_equal(r, ref) for r in results[name]):
+            raise SystemExit(f"a timed {name} bake differs from ot.bake's")
+        if launches[name] != 6 * 5:
+            raise SystemExit(f"{launches[name]} exact launches in 5 {name} "
+                             "bakes: want 6 per bake")
+        summaries[name] = _summary(utri, times[name])
+        print(f"surface {name} bake: best {summaries[name]['best_s']:.4f} s "
+              f"median {summaries[name]['median_s']:.4f} s, "
+              f"{summaries[name]['best_mutri_s']:.2f} M utri/s best; exact "
+              f"launches {launches[name]} in 5 bakes, byte-equal to ot.bake "
+              f"({card})", flush=True)
+        print(f"surface {name} times s: "
+              f"{json.dumps([round(t, 6) for t in times[name]])}")
+    return {k: launches[k] for k in ("baker", "capi")}, summaries
+
+
+#: (maximum level, every triangle at it): level 7 at the example's
+#: defaults, level 9 with the dynamic subdivision scale at 0
+SCENE_LEVELS = ((7, False), (9, True))
+
+
+def scene_phase(card):
+    """Phase 12 (b): the vegetation scene through one Baker at each of
+    SCENE_LEVELS, each level's card result byte-equal to the CPU bake.
+    Returns (exact launches of each level's timed bakes, summaries by
+    level, the level-7 descriptor and card result)."""
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import integration
+    atlas = foliage_atlas(SCENE_ATLAS)
+    bk = ot.Baker()
+    launches, summaries = {}, {}
+    for level, fixed in SCENE_LEVELS:
+        desc = _scene_desc(level, atlas, fixed)
+        results, times, counts = _in_turns({"scene": lambda: bk.bake(desc)})
+        res = results["scene"][0]
+        utri = _result_utri(res)
+        levels = sorted({d.subdivision_level for d in res.desc_array})
+        if fixed and levels != [level]:
+            raise SystemExit(f"the scene baked at levels {levels}, not "
+                             f"{level}")
+        if not all(_results_equal(r, res) for r in results["scene"]):
+            raise SystemExit(f"the timed level-{level} scene bakes differ")
+        launched = counts["scene"]["exact_classify"]
+        routes = {k: v // 5 for k, v in counts["scene"].items()
+                  if k.startswith("route.") and v}
+        blob = bk.serialize(input_descs=[desc], result_descs=[res],
+                            compress=True)
+        back = bk.deserialize(blob)
+        if not (_results_equal(back.result_descs[0], res)
+                and bk.serialize(input_descs=back.input_descs,
+                                 result_descs=back.result_descs,
+                                 compress=True) == blob):
+            raise SystemExit(f"the level-{level} scene's blob does not "
+                             "round-trip")
+        summaries[level] = _summary(utri, times["scene"])
+        summaries[level].update(descs=len(res.desc_array), blob=len(blob),
+                                levels=levels, exact_launches=launched,
+                                routes=routes)
+        launches[level] = launched
+        print(f"scene level {level} (dynamic scale "
+              f"{desc.dynamic_subdivision_scale}): {desc.index_count // 3} "
+              f"tris ({utri} utri), {len(res.desc_array)} OMMs at levels "
+              f"{levels}, blob {len(blob)} B: best "
+              f"{summaries[level]['best_s']:.4f} s median "
+              f"{summaries[level]['median_s']:.4f} s; exact launches "
+              f"{launched} in 5 bakes; items per route per bake "
+              f"{json.dumps(routes)} ({card})", flush=True)
+        print(f"scene level {level} times s: "
+              f"{json.dumps([round(t, 6) for t in times['scene']])}")
+        if level == 9 and launched == 0:
+            raise SystemExit("the level-9 scene bakes never launched the "
+                             "exact kernel")
+        t0 = time.perf_counter()
+        if not _results_equal(res, bk.bake(desc, device="cpu")):
+            raise SystemExit(f"level-{level} scene: the card's BakeResult "
+                             "differs from the CPU bake")
+        print(f"level-{level} scene: byte-equal to the CPU bake "
+              f"({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
+        if level == 7:
+            desc7, res7 = desc, res
+            t0 = time.perf_counter()
+            s1, s2, equal = integration.dump_debug_compare(desc, res)
+            if not equal:
+                raise SystemExit(f"dump_debug_compare: {s1} != {s2}")
+            d3d = integration.to_d3d12_build_inputs(res)
+            vk = integration.to_vulkan_build_inputs(res)
+            if not (d3d.input_buffer == vk["data"]
+                    and d3d.omm_index_buffer == vk["indexBuffer"]
+                    and d3d.per_omm_counts == [
+                        (u["count"], u["subdivisionLevel"], u["format"])
+                        for u in vk["usageCounts"]]
+                    and d3d.omm_index_counts == [
+                        (u["count"], u["subdivisionLevel"], u["format"])
+                        for u in vk["indexUsageCounts"]]):
+                raise SystemExit("the D3D12 and Vulkan build inputs "
+                                 "disagree")
+            print(f"level-7 scene: dump_debug_compare equal, D3D12 and "
+                  f"Vulkan inputs agree ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+    return launches, summaries, desc7, res7
+
+
+def _cli(argv):
+    """(exit code, standard output) of omm_tpu_torch.cli.main(argv)."""
+    import contextlib
+    import io
+
+    from omm_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def tools_phase(desc7, res7, card):
+    """Phase 12 (c): the CLI, the viewer session, the overlay and the
+    terminal frame on the card against the CPU, on the level-7 scene's
+    blob.  Returns the exact launches of the whole phase."""
+    import tempfile
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import debug, tui
+    from omm_tpu_torch.viewer import ViewerSession
+    ot.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "scene.bin")
+        ot.Baker().save_binary_to_disk(ot.Baker().serialize(
+            input_descs=[desc7], result_descs=[res7], compress=True), p)
+        # the card without --device (the default), then the CPU
+        runs = {"cuda": [], "cpu": ["--device", "cpu"]}
+        outs = {}
+        for dev, extra in runs.items():
+            q = os.path.join(d, f"out_{dev}.bin")
+            rc, out = _cli(["bake", "--input-blob", p, "--out", q] + extra)
+            with open(q, "rb") as f:
+                outs[dev] = (rc, out.replace(q, "OUT"), f.read())
+        if outs["cuda"] != outs["cpu"] or outs["cuda"][0] != 0:
+            raise SystemExit("cli bake: the card's output differs from the "
+                             "CPU's")
+        frames = {}
+        for dev, extra in runs.items():
+            rc, frames[dev] = _cli(
+                ["viewer", p, "--set", "max_subdivision_level=6", "--stats",
+                 "--frame"] + extra)
+            if rc != 0:
+                raise SystemExit(f"cli viewer on {dev} exited {rc}")
+        if frames["cuda"] != frames["cpu"]:
+            raise SystemExit("cli viewer: the card's frame differs from the "
+                             "CPU's")
+        card_vs, cpu_vs = ViewerSession(p), ViewerSession(p, device="cpu")
+        r_card, r_cpu = card_vs.rebake(), cpu_vs.rebake()
+        if card_vs.stats() != cpu_vs.stats() or not _results_equal(r_card,
+                                                                    r_cpu):
+            raise SystemExit("viewer: the card's re-bake differs from the "
+                             "CPU's")
+        if not np.array_equal(debug.render_overlay(desc7, r_card, scale=1),
+                              debug.render_overlay(desc7, r_cpu, scale=1)):
+            raise SystemExit("render_overlay: the card's result renders "
+                             "differently from the CPU's")
+        if tui.render_ansi(tui.TuiViewer(card_vs)) \
+                != tui.render_ansi(tui.TuiViewer(cpu_vs)):
+            raise SystemExit("render_ansi: the card's frame differs from "
+                             "the CPU's")
+    launched = ot.launches()["exact_classify"]
+    if launched == 0:
+        raise SystemExit("the tools never launched the exact kernel")
+    print(f"tools on the card: cli bake (JSON and blob equal to --device "
+          f"cpu), cli viewer --set max_subdivision_level=6 --frame (frame "
+          f"equal to the CPU's), ViewerSession re-bake (stats and result "
+          f"equal to the CPU's), render_overlay and render_ansi equal; "
+          f"exact launches {launched} ({time.perf_counter() - t0:.1f} s, "
+          f"{card})", flush=True)
+    return launched
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -733,7 +1049,7 @@ def main():
     t0 = time.perf_counter()
     build.cuda_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
-          f"{build.BUILD_DIR})")
+          f"{build.build_dir()})")
     for line in build.BUILD_INFO.get("omm_exact_cuda", {}).get(
             "log", "").splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
@@ -858,6 +1174,12 @@ def main():
     mesh_launches, mesh_sums, ref = mesh_phase(desc, N_TRIS * 4 ** SUBDIV,
                                                card)
     farm_launches, farm_sum = farm_phase(desc, ref, card)
+
+    # ---- 12. surface (before 9) ----
+    surface_launches, surface_sums = surface_phase(
+        desc, N_TRIS * 4 ** SUBDIV, card)
+    scene_launches, scene_sums, desc7, res7 = scene_phase(card)
+    tools_launches = tools_phase(desc7, res7, card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -873,13 +1195,21 @@ def main():
                "mixed": mix_counts["exact_classify"],
                "gpu": gpu_counts["exact_classify"], "gpu_compute_only": 0,
                "mesh": mesh_launches["mesh"],
-               "mesh2": mesh_launches["mesh2"], "farm": farm_launches}
+               "mesh2": mesh_launches["mesh2"], "farm": farm_launches,
+               "surface.baker": surface_launches["baker"],
+               "surface.capi": surface_launches["capi"],
+               "surface.tools": tools_launches,
+               "scene.level7": scene_launches[7],
+               "scene.level9": scene_launches[9]}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
                                 "gpu_compute_only": co_sum,
                                 "mesh": mesh_sums["mesh"],
                                 "mesh2": mesh_sums["mesh2"],
-                                "farm": farm_sum}, "card": card}))
+                                "farm": farm_sum,
+                                "surface": {**surface_sums,
+                                            "tools_launches": tools_launches},
+                                "scene": scene_sums}, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",

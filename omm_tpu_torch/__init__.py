@@ -20,23 +20,46 @@ needs, under the JAX package's module names (`types`, `texture`,
     res = ot.bake(desc, mesh=ot.parallel.make_mesh())  # every card
     # byte-equal to omm_tpu.bake(desc, backend="pallas", mesh=...)
 
-`bake` and `gpu.Pipeline.dispatch` run on "cuda" unless the caller
-passes device="cpu", where the exact stage runs its plain torch twin;
-asking for "cuda" without a card raises.  `convert` builds the port's
+The library surface above them is the JAX package's, copied: `Baker`
+(the ommCpu*/ommDebug* handle), `capi` (the flat omm.h names), `debug`
+(state overlays and PNG dumps), `integration` (D3D12/Vulkan build
+inputs), and the tools `viewer`, `tui` and the CLI
+(`python -m omm_tpu_torch.cli`, not imported here so that `-m` runs it
+fresh).
+
+    bk = ot.Baker()
+    res = bk.bake(desc)                # on the CUDA card
+    bk.save_as_images(desc, res, "out/")
+
+`bake`, `Baker.bake`, `gpu.Pipeline.dispatch`, the viewer and the CLI
+run on "cuda" unless the caller passes device="cpu" (`--device cpu`),
+where the exact stage runs its plain torch twin; asking for "cuda"
+without a card raises.  `convert` builds the port's
 input from the numpy arrays and enum values a JAX-package descriptor
 holds, and turns a result into plain numpy arrays and ints.  `parallel`
 splits a bake over a mesh of devices (`shard`) and over processes
 joined by torch.distributed (`multihost`, the bake farm); `serialize`
 writes and reads the JAX package's blobs, byte for byte.
 """
+from .types import (AlphaMode, BakeError, BakeFlags, BakeInputDesc,
+                    BakeResult, DebugStats, Format, IndexFormat, MicromapDesc,
+                    OpacityState, Result, SamplerDesc, SpecialIndex,
+                    TexCoordFormat, TextureAddressMode, TextureFilterMode,
+                    TextureFlags, TextureFormat, UnknownStatePromotion,
+                    UsageCount, get_bit_count, get_num_micro_triangles,
+                    MAX_SUBDIV_LEVEL)
 from .texture import Texture
-from .types import BakeInputDesc, BakeResult, TextureFormat
 
 from . import gpu, parallel, routes, serialize
 from .bake import bake
 from .batch import classify_work_items_batches
 from .kernels import exact as exact_kernel
 from .stats import collect_stats, decode_states, get_stats
+from .baker import Baker
+from .log import Logger, MessageSeverity
+from . import capi, debug, integration, tui, viewer
+
+LIBRARY_VERSION = (1, 9, 0)  # capability parity target (omm.h:17-19)
 
 
 def launches() -> dict:
@@ -56,7 +79,14 @@ def reset_launches() -> None:
         routes.reset()
 
 
-__all__ = ["BakeInputDesc", "BakeResult", "Texture", "TextureFormat", "bake",
-           "classify_work_items_batches", "collect_stats", "decode_states",
-           "get_stats", "gpu", "launches", "parallel", "reset_launches",
-           "serialize"]
+__all__ = [
+    "AlphaMode", "BakeError", "BakeFlags", "BakeInputDesc", "BakeResult",
+    "DebugStats", "Format", "IndexFormat", "MicromapDesc", "OpacityState",
+    "Result", "SamplerDesc", "SpecialIndex", "TexCoordFormat",
+    "TextureAddressMode", "TextureFilterMode", "TextureFlags",
+    "TextureFormat", "UnknownStatePromotion", "UsageCount", "Texture",
+    "bake", "get_stats", "collect_stats", "decode_states", "get_bit_count",
+    "get_num_micro_triangles", "MAX_SUBDIV_LEVEL", "LIBRARY_VERSION",
+    "Baker", "Logger", "MessageSeverity",
+    "capi", "classify_work_items_batches", "debug", "gpu", "integration",
+    "launches", "parallel", "reset_launches", "serialize", "tui", "viewer"]

@@ -1019,12 +1019,13 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
         # sharded items skip every later pass: the engine's descent
         # resolves what the coarse pass would, and the exact stage the rest
         sel &= ~_classify_on_mesh(tex, cfg, items, sel & ~degen, mesh)
-    for i in np.flatnonzero(sel):
-        it = items[i]
-        st = engine.resample_coarse_item(tex, cfg, it.uv_tri,
-                                         it.subdivision_level, it.states)
-        if st is not it.states:  # identity (no SAT): keep _fresh valid
-            it.states = st
+    with record_function("omm.coarse"):
+        for i in np.flatnonzero(sel):
+            it = items[i]
+            st = engine.resample_coarse_item(tex, cfg, it.uv_tri,
+                                             it.subdivision_level, it.states)
+            if st is not it.states:  # identity (no SAT): keep _fresh valid
+                it.states = st
     if cfg.disable_fine or not items:
         return
 

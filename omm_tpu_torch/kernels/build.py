@@ -6,7 +6,9 @@ library compiles the same exact-stage math (`csrc/exact_math.cuh`) with
 g++ for the CPU tests; the native runtime library (`csrc/omm_native.cpp`:
 LZ4, XXH64, state packing) is built by g++ for the bake's host tail.
 Each is built at first use into `build/omm_tpu_torch/` beside the
-package, named by a digest of its own sources and flags (editing the
+package (in a checkout), or into `~/.cache/omm_tpu_torch/` where that
+directory cannot be written (an installed package), named by a digest
+of its own sources and flags (editing the
 CUDA kernel rebuilds neither g++ library; the native library's name also
 covers what -march=native means on the building host), and put in place
 by an atomic rename from a per-process temporary, so concurrent
@@ -28,6 +30,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "omm_tpu_torch"
+#: where the libraries go when BUILD_DIR cannot be written
+USER_BUILD_DIR = Path("~/.cache/omm_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
@@ -75,16 +79,29 @@ def _host_target() -> str:
     return r.stdout
 
 
+def build_dir() -> Path:
+    """BUILD_DIR where it can be created and written, else the user's
+    cache directory (USER_BUILD_DIR)."""
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if os.access(BUILD_DIR, os.W_OK):
+            return BUILD_DIR
+    except OSError:
+        pass
+    d = USER_BUILD_DIR.expanduser()
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
 def _compile(name: str, cmd: list, sources: list, flags: list) -> Path:
     """Build sources[0] (which includes the rest) into lib<name>_<digest>.so
-    unless that file exists."""
+    in `build_dir()` unless that file exists."""
     key = [cmd[0], *flags]
     if "-march=native" in flags:
         key.append(_host_target())
-    out = BUILD_DIR / f"lib{name}_{_digest(key, sources)}.so"
+    out = build_dir() / f"lib{name}_{_digest(key, sources)}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     r = subprocess.run([*cmd, *flags, str(sources[0]), "-o", str(tmp)],

@@ -53,6 +53,15 @@ def tex_cache(texture: Texture, device) -> dict:
         return c.setdefault(str(torch.device(device)), {})
 
 
+def drop_cache(texture: Texture) -> None:
+    """Drop every device's cached planes of `texture` (under the lock
+    that creates the cache: mesh slots share a texture)."""
+    with _CACHE_LOCK:
+        c = texture.__dict__.get(_CACHE_ATTR)
+        if c is not None:
+            c.clear()
+
+
 def plane_key(mip, addr_mode, pad, border_alpha, period):
     return ("tiles", mip, int(addr_mode), pad, pad, float(border_alpha),
             period)

@@ -579,3 +579,91 @@ def test_static_resource_blob():
     assert d["size"] == d["data"].nbytes
     with pytest.raises(ValueError):
         get_static_resource_data("NOPE")
+
+
+def _debug_case(filter_, seed):
+    """The same descriptor for both packages, and the JAX package's
+    numpy bake of it (the renders read only the result's arrays): two
+    mips with
+    uniform corners (special indices), random and degenerate
+    triangles, a 2-state and a 4-state format."""
+    rng = np.random.RandomState(seed)
+    plane = _plane(seed, 48, 40)
+    plane[:12, :16] = 1.0
+    plane[-10:, -12:] = 0.0
+    planes = [plane, plane[::2, ::2].copy()]
+    tris = np.concatenate([
+        _tris(5, seed),
+        np.array([[[0.02, 0.02], [0.2, 0.02], [0.02, 0.2]],
+                  [[0.1, 0.5], [0.5, 0.5], [0.3, 0.5]]], np.float32)])
+    fields = dict(tex_coords=tris.reshape(-1, 2),
+                  index_buffer=np.arange(3 * len(tris), dtype=np.uint32),
+                  index_count=3 * len(tris), max_subdivision_level=3,
+                  dynamic_subdivision_scale=0.0,
+                  format=1 + int(rng.randint(2)))
+    jdesc, tdesc = _descs(planes, 1, {
+        "addressing_mode": omm.TextureAddressMode(rng.randint(5)),
+        "filter": omm.TextureFilterMode(filter_)}, **fields)
+    return jdesc, tdesc, omm.bake(jdesc, backend="numpy")
+
+
+def test_debug_canvas_and_de_degenerate():
+    from omm_tpu import debug as jdebug
+    from omm_tpu_torch import debug as tdebug
+    plane = _plane(21, 24, 20)
+    for fmt, p in ((1, plane), (0, (plane * 255).astype(np.uint8))):
+        jt = omm.Texture([p], omm.TextureFormat(fmt))
+        tt = ttexture.Texture([p], ttypes.TextureFormat(fmt))
+        for scale in (1, 3):
+            assert np.array_equal(tdebug._canvas(tt, scale),
+                                  jdebug._canvas(jt, scale))
+    rng = np.random.RandomState(22)
+    for _ in range(30):
+        a, d = rng.rand(2).astype(np.float32), rng.rand(2).astype(np.float32)
+        line = np.stack([a, a + d * rng.rand(), a + d])[rng.permutation(3)]
+        line = line.astype(np.float32)
+        assert np.array_equal(tdebug._de_degenerate(line),
+                              jdebug._de_degenerate(line))
+
+
+@pytest.mark.parametrize("filter_", [1, 0], ids=["linear", "nearest"])
+def test_debug_renders(filter_):
+    """render_overlay (every option) and render_cutout of each
+    primitive, on the same descriptor and result."""
+    from omm_tpu import debug as jdebug
+    from omm_tpu_torch import debug as tdebug
+    jdesc, tdesc, res = _debug_case(filter_, 23 + filter_)
+    assert (np.asarray(res.index_buffer) < 0).any()
+    for kw in ({}, {"monochrome_unknowns": True, "highlight_reuse": False},
+               {"scale": 2}):
+        assert np.array_equal(tdebug.render_overlay(tdesc, res, **kw),
+                              jdebug.render_overlay(jdesc, res, **kw)), kw
+    for prim in range(tdesc.index_count // 3):
+        kw = dict(max_dim=512, max_pixels=1 << 14,
+                  monochrome_unknowns=bool(prim % 2),
+                  highlight_reuse=prim == 3)
+        assert np.array_equal(tdebug.render_cutout(tdesc, res, prim, **kw),
+                              jdebug.render_cutout(jdesc, res, prim, **kw)), \
+            prim
+
+
+def test_viewer_uv_to_micro_index():
+    from omm_tpu import viewer as jviewer
+    from omm_tpu_torch import viewer as tviewer
+    rng = np.random.RandomState(24)
+    for tri in _tris(6, 24):
+        for level in (0, 1, 3, 6):
+            for _ in range(5):
+                w = rng.dirichlet([1.0, 1.0, 1.0])
+                uv = (w @ tri.astype(np.float64)).astype(np.float32)
+                assert tviewer.uv_to_micro_index(tri, uv, level) \
+                    == jviewer.uv_to_micro_index(tri, uv, level)
+
+
+def test_integration_conservative_memory_estimate():
+    from omm_tpu import integration as jint
+    from omm_tpu_torch import integration as tint
+    for tris, level, bits in ((1, 0, 2), (7, 5, 2), (300, 9, 1), (0, 12, 2),
+                              (1 << 20, 12, 2)):
+        assert tint.conservative_memory_estimate(tris, level, bits) \
+            == jint.conservative_memory_estimate(tris, level, bits)

@@ -5,7 +5,8 @@ the CPU, the benchmark bake on the card against the JAX package's
 numpy oracle, the GPU baker's dispatch on the card (default engine
 and ComputeOnly) against the dispatch on the CPU, and the mesh bake
 (every card; two slots on one card) against the plain bake, with kernel
-launches from several threads all counted.  The port's inputs are built through convert from the
+launches from several threads all counted, and the library surface
+(`Baker`, the CLI's bake) on the card against the CPU.  The port's inputs are built through convert from the
 same numpy arrays as the JAX package's.
 
 Every test is marked `cuda` and skips without a card.  This file
@@ -393,3 +394,27 @@ def test_kernel_launches_add_up_across_threads(cuda):
     with cf.ThreadPoolExecutor(max_workers=8) as pool:
         assert all(pool.map(run, range(8)))
     assert ot.launches()["exact_classify"] == 8 * 25
+
+
+def test_surface_on_card_equals_cpu(cuda, tmp_path, capsys):
+    """ot.Baker().bake(desc) and the CLI's bake on the card (their
+    default) launch the exact kernel and are byte-equal to the CPU's,
+    the CLI's printed JSON and written blob included."""
+    from omm_tpu_torch import cli
+    _, tdesc, _ = _bench_desc(16)
+    ot.reset_launches()
+    got = ot.Baker().bake(tdesc)
+    assert ot.launches()["exact_classify"] > 0
+    _assert_equal(got, ot.Baker().bake(tdesc, device="cpu"))
+    p = tmp_path / "in.bin"
+    p.write_bytes(ot.Baker().serialize(input_descs=[tdesc]))
+    outs = []
+    for extra in ([], ["--device", "cpu"]):
+        q = tmp_path / f"out{len(extra)}.bin"
+        ot.reset_launches()
+        assert cli.main(["bake", "--input-blob", str(p), "--out", str(q)]
+                        + extra) == 0
+        assert (ot.launches()["exact_classify"] > 0) == (not extra)
+        outs.append((capsys.readouterr().out.replace(str(q), "OUT"),
+                     q.read_bytes()))
+    assert outs[0] == outs[1]

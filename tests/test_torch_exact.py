@@ -422,3 +422,26 @@ def test_wrapper_checks_and_cpu_route():
     with pytest.raises(ValueError):
         exact.exact_counts(plane, bt, ids, uv6, ccw,
                            **dict(kw, H=70, W=4))
+
+
+def test_build_dir_falls_back_to_the_user_cache(tmp_path, monkeypatch):
+    """Where <package parent>/build/omm_tpu_torch/ cannot be made (an
+    installed package's site-packages; here a path under a plain file),
+    the host build goes into ~/.cache/omm_tpu_torch/ and loads from
+    there; a writable BUILD_DIR is used as it is."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    from omm_tpu_torch.kernels import build
+    blocker = tmp_path / "site-packages"
+    blocker.write_text("a file, not a directory")
+    monkeypatch.setattr(build, "BUILD_DIR", blocker / "build" / "omm")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    cache = tmp_path / "home" / ".cache" / "omm_tpu_torch"
+    assert build.build_dir() == cache
+    lib = build.host_library()
+    built = list(cache.glob("libomm_exact_host_*.so"))
+    assert len(built) == 1 and lib._name == str(built[0])
+    writable = tmp_path / "checkout" / "build" / "omm_tpu_torch"
+    monkeypatch.setattr(build, "BUILD_DIR", writable)
+    assert build.build_dir() == writable and writable.is_dir()

@@ -4,7 +4,8 @@ CPU against the JAX package's, byte for byte, and the same BakeError
 Result code where both refuse.
 
 Axes drawn per case: texture (size, one or two mips, FP32 or UNORM8,
-random / binary / radial / near-cutoff content), sampler (five address
+random / binary / radial / near-cutoff content, DisableZOrder, the
+cutoff embedded, which turns on the coarse SAT pass), sampler (five address
 modes, both filters, border alpha), geometry (ordinary, multi-repeat,
 CW, line, point, fp32-thin sliver), per-triangle subdivision levels
 0-6, global and per-triangle formats, promotion modes, cutoff-state
@@ -119,7 +120,15 @@ def _random_case(rng, k):
     sampler = dict(addressing_mode=int(rng.randint(5)),
                    filter=int(k % 3 != 0),
                    border_alpha=float(rng.rand()))
-    return planes, tex_fmt, sampler, fields
+    # the texture's flags and embedded cutoff come from a stream of their
+    # own, so that the axes above keep their draws
+    trng = np.random.RandomState(78000 + k)
+    texture = dict(
+        texture_flags=int(omm.TextureFlags.DisableZOrder)
+        if trng.randint(2) else 0,
+        texture_alpha_cutoff=fields["alpha_cutoff"]
+        if trng.randint(4) == 0 else -1.0)
+    return planes, tex_fmt, sampler, dict(fields, **texture)
 
 
 def _jax_desc(planes, tex_fmt, sampler, fields):
@@ -127,9 +136,12 @@ def _jax_desc(planes, tex_fmt, sampler, fields):
         omm.UnknownStatePromotion), bake_flags=omm.BakeFlags,
         alpha_cutoff_less_equal=omm.OpacityState,
         alpha_cutoff_greater=omm.OpacityState)
-    f = {k: enums[k](v) if k in enums else v for k, v in fields.items()}
+    f = {k: enums[k](v) if k in enums else v for k, v in fields.items()
+         if not k.startswith("texture_")}
     return omm.BakeInputDesc(
-        texture=omm.Texture(planes, omm.TextureFormat(tex_fmt)),
+        texture=omm.Texture(planes, omm.TextureFormat(tex_fmt),
+                            omm.TextureFlags(fields["texture_flags"]),
+                            fields["texture_alpha_cutoff"]),
         runtime_sampler=omm.SamplerDesc(
             addressing_mode=omm.TextureAddressMode(sampler["addressing_mode"]),
             filter=omm.TextureFilterMode(sampler["filter"]),
@@ -166,14 +178,20 @@ def test_fuzz_port_vs_pallas(seed):
 
 def test_fuzz_draws_every_route():
     """The corpus is not vacuous: over the seeds above, the port's bakes
-    take every route and both packages refuse some descriptor."""
+    take every route, both packages refuse some descriptor, and some
+    texture has DisableZOrder and some the cutoff embedded."""
     ot.reset_launches()
     refused = 0
+    drawn = set()
     for seed in range(8):
         rng = np.random.RandomState(77000 + seed)
         for trial in range(2):
             planes, tex_fmt, sampler, fields = _random_case(
                 rng, 2 * seed + trial)
+            drawn |= {k for k, v in (("zorder_off", fields["texture_flags"]),
+                                     ("embedded_cutoff",
+                                      fields["texture_alpha_cutoff"] >= 0))
+                      if v}
             try:
                 ot.bake(convert.bake_input(planes, tex_fmt, **sampler,
                                            **fields), device="cpu")
@@ -182,6 +200,7 @@ def test_fuzz_draws_every_route():
     counts = ot.launches()
     taken = {k for k, v in counts.items() if k.startswith("route.") and v}
     assert refused > 0
+    assert drawn == {"zorder_off", "embedded_cutoff"}
     assert taken >= {"route.fast_path", "route.dense", "route.degenerate",
                      "route.nearest_survivors", "route.host_engine",
                      "route.linear_survivors"}, counts

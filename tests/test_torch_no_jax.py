@@ -6,8 +6,10 @@ types and bakes it on the CPU through omm_tpu_torch.bake, then bakes it
 with the nearest filter and a line triangle through the degenerate
 route, dispatches a GPU-baker chain of an RGBA texture on the CPU, and
 bakes over a mesh of two CPU slots, serializes the result and merges an
-exact farm of two partitions; the bakes must succeed and none of the
-blocked modules may enter sys.modules.  This
+exact farm of two partitions, then bakes through ot.Baker and ot.capi
+and runs the CLI's bake, stats and viewer subcommands with --device cpu;
+the bakes must succeed and none of the blocked modules may enter
+sys.modules.  This
 cannot be checked in-process: tests/conftest.py imports jax.  An AST
 scan checks the same of every source file of the port and of
 chip_smoke.py, including imports on paths the bake does not take."""
@@ -105,6 +107,23 @@ parts = mh.partition_items(mh.item_costs(desc), 2)
 merged = mh.merge_exact(desc, [mh.classify_partition(desc, p, device="cpu")
                                for p in parts])
 assert (merged.array_data == res.array_data).all()
+
+# the library surface and the CLI
+import os
+import tempfile
+from omm_tpu_torch import cli
+bk = ot.Baker()
+assert (bk.bake(desc, device="cpu").array_data == res.array_data).all()
+got = ot.capi.omm_cpu_bake(ot.capi.omm_create_baker(), desc, device="cpu")
+assert (got.array_data == res.array_data).all()
+with tempfile.TemporaryDirectory() as d:
+    p = os.path.join(d, "in.bin")
+    bk.save_binary_to_disk(bk.serialize(input_descs=[desc]), p)
+    for argv in (["bake", "--input-blob", p, "--out",
+                  os.path.join(d, "out.bin")], ["stats", p],
+                 ["viewer", p, "--frame", "--frame-rows", "2",
+                  "--frame-cols", "4"]):
+        assert cli.main(argv + ["--device", "cpu"]) == 0, argv
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK")
 """ % (BLOCKED, REPO)

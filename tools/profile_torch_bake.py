@@ -6,8 +6,9 @@
 Runs one of chip_smoke.py's workloads on cuda:0: through
 omm_tpu_torch.bake "bench" (the default: 1024^2 FP32 clamp texture, 256
 triangles, subdivision 9), "nearest" (the same with the nearest filter)
-or "mixed" (its 312-triangle mesh over every linear route); or "gpu",
-the bench triangles through the GPU baker's dispatch chain on its RGBA
+or "mixed" (its 312-triangle mesh over every linear route), or "scene"
+(the vegetation scene, every triangle at subdivision 9); or "gpu", the
+bench triangles through the GPU baker's dispatch chain on its RGBA
 texture (the DescPatch pass is the label omm.desc_patch).  2 warm-up
 bakes, then one bake under torch.profiler.  Prints the wall seconds of
 the profiled bake, host time per stage and route label (omm.*), the
@@ -35,7 +36,7 @@ sys.path.insert(0, ROOT)
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("bench", "nearest", "mixed",
-                                           "gpu"), default="bench")
+                                           "gpu", "scene"), default="bench")
     ap.add_argument("--trace", help="write the Chrome trace to this file")
     ap.add_argument("--exact-vs", metavar="DIR", nargs="+",
                     help="time the exact kernels built from each DIR "

@@ -1,13 +1,15 @@
 """Wall time of omm_tpu_torch bakes on one CUDA card, without a profiler.
 
-    python tools/time_torch_bake.py [--workload bench|nearest|mixed|gpu]
+    python tools/time_torch_bake.py [--workload bench|nearest|mixed|gpu|scene]
                                     [--package-root DIR]
 
 Builds one of chip_smoke.py's workloads ("bench": 1024^2 FP32 clamp
 texture, 256 triangles, subdivision 9; "nearest": the same with the
 nearest filter; "mixed": its 312-triangle mesh over every linear route;
 "gpu": the bench triangles through the GPU baker's dispatch chain on
-its RGBA texture) and times it as chip_smoke.py does: 2 warm-up bakes, then 5 timed ones,
+its RGBA texture; "scene": the vegetation scene, 400 triangles over 6 UV
+variants of a 512^2 foliage atlas, every one at subdivision 9) and
+times it as chip_smoke.py does: 2 warm-up bakes, then 5 timed ones,
 each ending with the result on the host, which must be byte-equal.
 Prints one JSON line: the card's name and power limit, the workload, the
 times, best and median seconds and micro-triangles per second.  With
@@ -28,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("bench", "nearest", "mixed",
-                                           "gpu"), default="bench")
+                                           "gpu", "scene"), default="bench")
     ap.add_argument("--package-root", default=ROOT)
     args = ap.parse_args()
     pkg_root = os.path.abspath(args.package_root)
