@@ -102,13 +102,41 @@ and prints no result line):
              the CPU (equal stats, np.array_equal overlays from
              debug.render_overlay, string-equal tui.render_ansi frames);
              the exact launch count must grow across (c)
+ 13. spots   (runs before phase 9) bench.py's spot configurations at full
+             size, each through omm_tpu_torch.bake on the card (2 warm-ups,
+             5 timed bakes, byte-equal; peak device memory beside what
+             was held before them; items per route; the exact kernel must
+             be launched and the fast path take every work item):
+             (a) subdivision 11, bench.py _spot_highsubdiv's 4 triangles
+             (16,777,216 utri); (b) subdivision 12, _spot_subdiv12's 2
+             triangles (33,554,432 utri, one item per batch); (c) the
+             bench triangles 0-15 at subdivision 10; (d) the 256 bench
+             triangles as t*3+1 under Wrap, and the same under Mirror;
+             (e) _spot_multimip's 3-mip chain (128/64/32 crops of a
+             RandomState(5) plane, 2 triangles at 6), and the benchmark
+             circle drawn at 1024/512/256 under the 256 bench triangles
+             at 9; (f) _spot_unorm8's 1024^2 UNORM8 soft contour under
+             the 256 bench triangles at 9; (g) 1024 triangles (bench
+             triangle k % 256) at 9, 268,435,456 utri, with
+             DisableDuplicateDetection so that all 1024 are classified;
+             (h) 384 triangles at levels 7/8/9 x 128 through
+             subdivision_levels; (i) the GPU baker's dispatch of the
+             bench triangles on the 1024/512/256 chain in channel 3 of an
+             RGBA texture under Wrap, byte-equal to the same dispatch
+             with ComputeOnly (no launch).  Card against CPU, byte-equal:
+             the whole of (a), (b), (c) and of the small 3-mip chain, the
+             first 16 triangles of the others (the last 16 of (g)), with
+             PostDispatchInfo for (i).  Then the exact stage on the first
+             batch's slot stream of (a), (b), (d) and (f): kernel equal
+             to its twin, exact_work, bound and both versions' event time
 
 Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
 work items per route) are set to 0 just before its timed bakes and read
 just after (the mesh and surface paths: around each timed bake; the
 tools: around the whole of phase 12 c).  launches_by_path has a key for
 each path: surface.baker, surface.capi and surface.tools for phase 12
-(a) and (c), scene.level7 and scene.level9 for (b).
+(a) and (c), scene.level7 and scene.level9 for (b), spots.<name> for
+each bake of phase 13 (around its 5 timed bakes).
 jax and the JAX package omm_tpu are blocked from import for the whole
 run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
@@ -148,12 +176,10 @@ SUBDIV = 9
 BATCH = 48  # items per batch at subdiv 9 (bake's MAX_UTRI_PER_BATCH)
 
 
-def _workload():
-    """The benchmark workload (bench.py's _workload): a 1024^2 FP32 clamp
-    texture with a circle of radius 0.4 and 256 triangles."""
-    import omm_tpu_torch as ot
-    w = h = 1024
-    j, i = np.meshgrid(np.arange(h, dtype=np.float32),
+def _circle(w):
+    """The benchmark plane at w x w: 0 inside a circle of radius 0.4
+    about the centre, 1 outside, 0.6 at texel (0, 0)."""
+    j, i = np.meshgrid(np.arange(w, dtype=np.float32),
                        np.arange(w, dtype=np.float32), indexing="ij")
     u = i / np.float32(w)
     v = j / np.float32(w)
@@ -161,7 +187,14 @@ def _workload():
     plane = np.where(r < np.float32(0.4), np.float32(0.0),
                      np.float32(1.0)).astype(np.float32)
     plane[0, 0] = np.float32(0.6)
-    tex = ot.Texture([plane], ot.TextureFormat.FP32)
+    return plane
+
+
+def _workload():
+    """The benchmark workload (bench.py's _workload): a 1024^2 FP32 clamp
+    texture with a circle of radius 0.4 and 256 triangles."""
+    import omm_tpu_torch as ot
+    tex = ot.Texture([_circle(1024)], ot.TextureFormat.FP32)
     rng = np.random.RandomState(42)
     uv_tris = []
     for _ in range(N_TRIS):
@@ -306,6 +339,13 @@ def _scene_desc(level, atlas=None, fixed=False):
     return desc
 
 
+def _per_bake(counts, prefix):
+    """The nonzero counts whose names start with `prefix`, summed over 5
+    bakes, per bake."""
+    return {k: v // 5 for k, v in counts.items()
+            if k.startswith(prefix) and v}
+
+
 def _result_utri(res) -> int:
     """Micro-triangles of a result: 4^level of each triangle's OMM, 0
     for a triangle with a special index."""
@@ -317,14 +357,13 @@ WORKLOADS = ("bench", "nearest", "mixed", "gpu", "scene")
 
 
 def _rgba(tex):
-    """The GPU workload's 1024^2 RGBA FP32 texture: the benchmark plane
+    """The GPU workload's RGBA FP32 texture of `tex`'s mips: each plane
     in channel 3; the plane transposed, shifted and inverted in
     channels 0-2."""
     import omm_tpu_torch as ot
-    plane = tex.mips[0]
-    return ot.Texture([np.stack([plane.T, np.roll(plane, 17, axis=1),
-                                 np.float32(1.0) - plane, plane], axis=-1)],
-                      ot.TextureFormat.FP32)
+    return ot.Texture([np.stack([p.T, np.roll(p, 17, axis=1),
+                                 np.float32(1.0) - p, p], axis=-1)
+                       for p in tex.mips], ot.TextureFormat.FP32)
 
 
 def _gpu_cfg(tex, uv_tris, flags=None):
@@ -450,6 +489,25 @@ def slot_streams(tex, uvs, cfg, subdiv, n, dev):
     return (bp["planes"][0], block_tile, ids_slot, uv_flat, ccw), kw, what
 
 
+def _kernel_equals_twin(args, kw, what):
+    """Run the exact stage's kernel and its plain twin on one slot stream
+    (slot_streams' args and kw); fail unless their counts are equal and
+    some survivor straddles the cutoff.  Returns the largest count
+    difference."""
+    from omm_tpu_torch.kernels import exact
+    ka, kb = exact.exact_counts(*args, **kw)
+    ta, tb = exact.exact_counts(*args, exact="torch", **kw)
+    torch.cuda.synchronize()
+    err = max(int((ka - ta).abs().max()), int((kb - tb).abs().max()))
+    if err:
+        raise SystemExit(f"{what}: kernel counts differ from the torch twin "
+                         f"by up to {err}")
+    if int(((ka + kb) > 1).sum()) == 0:
+        raise SystemExit(f"{what}: no survivor straddles the cutoff: "
+                         "vacuous check")
+    return err
+
+
 def _summary(utri, times):
     """Best and median seconds and micro-triangles per second."""
     best, med = min(times), statistics.median(times)
@@ -488,16 +546,18 @@ def _timed_bakes(desc, utri, what, card):
 
 def _card_equals_cpu(desc_fn, what):
     """Bake desc_fn() on the card and on the CPU (the port's plain
-    path); fail unless the BakeResults are byte-equal."""
+    path); fail unless the BakeResults are byte-equal.  Returns (the
+    card's result, the CPU bake's seconds)."""
     r_card = _bake(desc_fn())
     t0 = time.perf_counter()
     r_cpu = _bake(desc_fn(), device="cpu")
+    cpu_s = time.perf_counter() - t0
     if not _results_equal(r_card, r_cpu):
         raise SystemExit(f"{what}: the BakeResult on the card differs from "
                          "the CPU bake")
     print(f"{what}: BakeResult on the card byte-equal to the CPU bake "
-          f"({time.perf_counter() - t0:.1f} s on the CPU)", flush=True)
-    return r_card
+          f"({cpu_s:.1f} s on the CPU)", flush=True)
+    return r_card, cpu_s
 
 
 def _results_equal(a, b) -> bool:
@@ -509,22 +569,24 @@ def _results_equal(a, b) -> bool:
             and np.array_equal(a.index_buffer, b.index_buffer))
 
 
-def _check_shape(res, n_tris):
+def _check_shape(res, n_tris, levels=(SUBDIV,)):
     """One index per triangle, each a descriptor or a special index
-    (-1..-4); every descriptor at SUBDIV with 4**SUBDIV 2-bit states
-    laid end to end in array_data."""
-    nbytes = 4 ** SUBDIV // 4
+    (-1..-4); every descriptor at one of `levels` with its 4**level 2-bit
+    states laid end to end in array_data.  Returns the descriptors'
+    count."""
     idx = np.asarray(res.index_buffer).astype(np.int64)
     if idx.shape != (n_tris,):
         raise SystemExit(f"index buffer shape {idx.shape}, want ({n_tris},)")
     nd = len(res.desc_array)
     if not np.all(((idx >= 0) & (idx < nd)) | ((idx >= -4) & (idx < 0))):
         raise SystemExit("index buffer holds an index out of range")
-    offs = sorted(d.offset for d in res.desc_array)
-    if (any(d.subdivision_level != SUBDIV for d in res.desc_array)
-            or offs != list(range(0, nd * nbytes, nbytes))
-            or len(res.array_data) != nd * nbytes):
-        raise SystemExit("descriptors or array_data have the wrong shape")
+    end = 0
+    for d in sorted(res.desc_array, key=lambda d: d.offset):
+        if d.subdivision_level not in levels or d.offset != end:
+            raise SystemExit("descriptors have the wrong level or offset")
+        end += 4 ** d.subdivision_level // 4
+    if len(res.array_data) != end:
+        raise SystemExit("array_data has the wrong size")
     return nd
 
 
@@ -890,8 +952,7 @@ def scene_phase(card):
         if not all(_results_equal(r, res) for r in results["scene"]):
             raise SystemExit(f"the timed level-{level} scene bakes differ")
         launched = counts["scene"]["exact_classify"]
-        routes = {k: v // 5 for k, v in counts["scene"].items()
-                  if k.startswith("route.") and v}
+        routes = _per_bake(counts["scene"], "route.")
         blob = bk.serialize(input_descs=[desc], result_descs=[res],
                             compress=True)
         back = bk.deserialize(blob)
@@ -1023,6 +1084,257 @@ def tools_phase(desc7, res7, card):
     return launched
 
 
+# ---- phase 13: bench.py's spot configurations ----
+
+#: the base triangle of bench.py's _spot_highsubdiv and _spot_subdiv12
+SPOT_BASE = np.array([[0.05, 0.1], [0.1, 0.8], [0.75, 0.7]], np.float32)
+#: triangles of a spot held against the CPU bake where not all of them
+SPOT_SUBSET = 16
+#: the spots whose first batch's slot stream phase 13 times and bounds
+SPOT_STREAMS = ("subdiv11", "subdiv12", "wrapped", "unorm8")
+
+
+def _chain():
+    """The benchmark plane as a 3-mip chain: the circle drawn at 1024^2,
+    512^2 and 256^2."""
+    import omm_tpu_torch as ot
+    return ot.Texture([_circle(w) for w in (1024, 512, 256)],
+                      ot.TextureFormat.FP32)
+
+
+def _soft_contour():
+    """bench.py _spot_unorm8's texture: a 1024^2 UNORM8 soft radial edge,
+    quantized, with a wide band of texels near the cutoff."""
+    import omm_tpu_torch as ot
+    w = h = 1024
+    j, i = np.meshgrid(np.arange(h, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    r = np.hypot(i / w - 0.5, j / h - 0.5)
+    a = np.clip((np.float32(0.45) - r) / np.float32(0.08), 0.0, 1.0)
+    return ot.Texture([np.round(a * 255).astype(np.uint8)],
+                      ot.TextureFormat.UNORM8)
+
+
+def _multimip_small():
+    """bench.py _spot_multimip's 3-mip chain (128/64/32 crops of one
+    RandomState(5) plane) and its two triangles."""
+    import omm_tpu_torch as ot
+    rng = np.random.RandomState(5)
+    mips = []
+    w = 128
+    base = rng.rand(w, w).astype(np.float32)
+    while w >= 32:
+        mips.append(base[:w, :w].copy())
+        w //= 2
+    tris = [np.array([[0.1, 0.12], [0.2, 0.8], [0.82, 0.7]], np.float32),
+            np.array([[0.3, 0.05], [0.35, 0.6], [0.9, 0.5]], np.float32)]
+    return ot.Texture(mips, ot.TextureFormat.FP32), tris
+
+
+def _spot_desc(tex, tris, level, mode=None, levels=None, flags=0):
+    """A spot's BakeInputDesc with bench.py's engine configuration (cutoff
+    0.5, OC1_4_State, Nearest promotion, the linear filter): every
+    triangle at `level`, or at its entry of `levels`; address mode
+    `mode` (Clamp); bake flags `flags`."""
+    import omm_tpu_torch as ot
+    n = len(tris)
+    desc = ot.BakeInputDesc(
+        texture=tex, tex_coords=np.concatenate(tris).astype(np.float32),
+        index_buffer=np.arange(3 * n, dtype=np.uint32), index_count=3 * n,
+        alpha_cutoff=0.5, max_subdivision_level=level,
+        dynamic_subdivision_scale=0.0, bake_flags=ot.BakeFlags(flags),
+        unknown_state_promotion=ot.UnknownStatePromotion.Nearest)
+    if mode is not None:
+        desc.runtime_sampler.addressing_mode = mode
+    if levels is not None:
+        desc.subdivision_levels = np.asarray(levels, np.uint8)
+    return desc
+
+
+def spot_workloads(tex, uv_tris):
+    """Phase 13's bakes, (a)-(h), in order: (name, descriptor,
+    micro-triangles, a function making the descriptor held against the
+    CPU bake).  That descriptor is the whole spot for (a)-(c) and the
+    small 3-mip chain, else SPOT_SUBSET of its triangles.  The large mesh
+    repeats each bench triangle four times, as bench.py's does; the bake
+    would classify each UV triangle once (duplicate detection), so it
+    runs with DisableDuplicateDetection and classifies all 1024, as
+    bench.py's spot does."""
+    import omm_tpu_torch as ot
+    A = ot.TextureAddressMode
+    no_dups = int(ot.BakeFlags.DisableDuplicateDetection)
+    wrapped = [t * np.float32(3.0) + np.float32(1.0) for t in uv_tris]
+    chain = _chain()
+    small_tex, small_tris = _multimip_small()
+    unorm8 = _soft_contour()
+    large = [uv_tris[k % len(uv_tris)] for k in range(1024)]
+    mixed = [uv_tris[k % len(uv_tris)] for k in range(384)]
+    mixed_levels = [7, 8, 9] * 128
+    first = slice(0, SPOT_SUBSET)
+    # (name, texture, triangles, level, mode, levels, flags, subset)
+    rows = [
+        ("subdiv11", tex, [SPOT_BASE + np.float32(0.02) * k
+                           for k in range(4)], 11, None, None, 0, None),
+        ("subdiv12", tex, [SPOT_BASE, SPOT_BASE + np.float32(0.02)], 12,
+         None, None, 0, None),
+        ("subdiv10", tex, uv_tris[:16], 10, None, None, 0, None),
+        ("wrapped", tex, wrapped, SUBDIV, A.Wrap, None, 0, first),
+        ("mirror", tex, wrapped, SUBDIV, A.Mirror, None, 0, first),
+        ("multimip_small", small_tex, small_tris, 6, None, None, 0, None),
+        ("multimip", chain, uv_tris, SUBDIV, None, None, 0, first),
+        ("unorm8", unorm8, uv_tris, SUBDIV, None, None, 0, first),
+        ("large_mesh", tex, large, SUBDIV, None, None, no_dups,
+         slice(len(large) - SPOT_SUBSET, len(large))),
+        ("mixed_levels", tex, mixed, SUBDIV, None, mixed_levels, 0, first),
+    ]
+    out = []
+    for name, t, tris, level, mode, levels, flags, sub in rows:
+        desc = _spot_desc(t, tris, level, mode, levels, flags)
+        utri = sum(4 ** lv for lv in (levels or [level] * len(tris)))
+        sub = sub or slice(0, len(tris))
+
+        def cpu_desc(t=t, tris=tris[sub], level=level, mode=mode,
+                     levels=None if levels is None else levels[sub],
+                     flags=flags):
+            return _spot_desc(t, tris, level, mode, levels, flags)
+        out.append((name, desc, utri, cpu_desc))
+    return out
+
+
+def _gpu_spot_cfg(uv_tris, flags=None):
+    """(i): the GPU baker's DispatchConfigDesc of the benchmark triangles
+    on the 1024/512/256 chain in channel 3 of an RGBA texture, under
+    Wrap."""
+    import omm_tpu_torch as ot
+    cfg = _gpu_cfg(_rgba(_chain()), uv_tris, flags)
+    cfg.runtime_sampler.addressing_mode = ot.TextureAddressMode.Wrap
+    return cfg
+
+
+def spots_phase(tex, uv_tris, card):
+    """Phase 13: (a)-(h) through ot.bake on the card, (i) through the GPU
+    baker; each 2 warm-ups and 5 timed bakes, byte-equal, the exact kernel
+    launched on the fast path, the card's result byte-equal to the CPU
+    bake (`spot_workloads`' descriptors).  Returns ({name: exact launches
+    of the 5 timed bakes}, {name: summary})."""
+    import dataclasses
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import gpu
+    from omm_tpu_torch.bake import Options, setup_work_items
+    launches, summaries = {}, {}
+    for name, desc, utri, cpu_desc in spot_workloads(tex, uv_tris):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        counts, _, res, summary = _timed_bakes(desc, utri, f"spot {name}",
+                                               card)
+        peak = torch.cuda.max_memory_allocated()
+        routes = _per_bake(counts, "route.")
+        launches[name] = counts["exact_classify"]
+        levels = ({int(lv) for lv in desc.subdivision_levels}
+                  if desc.subdivision_levels is not None
+                  else {desc.max_subdivision_level})
+        nd = _check_shape(res[0], desc.index_count // 3, levels)
+        n_items = len(setup_work_items(desc, Options.from_flags(
+            desc.bake_flags)))
+        if launches[name] == 0 or routes.get("route.fast_path", 0) != n_items:
+            raise SystemExit(f"spot {name}: the bakes took {routes} items, "
+                             f"not all {n_items} work items to the fast "
+                             "path, or never launched the exact kernel")
+        sub = cpu_desc()
+        _, cpu_s = _card_equals_cpu(cpu_desc, f"spot {name}, "
+                                    f"{sub.index_count // 3} triangles")
+        summary.update(exact_launches=launches[name], routes=routes,
+                       items=n_items, peak_bytes=peak, held_bytes=held,
+                       descs=nd, cpu_s=cpu_s, cpu_tris=sub.index_count // 3)
+        summaries[name] = summary
+        print(f"spot {name}: {n_items} work items, {nd} OMMs at levels "
+              f"{sorted(levels)}; items per route per bake "
+              f"{json.dumps(routes)}; exact launches "
+              f"{launches[name] // 5} per bake; peak device memory "
+              f"{peak / 2 ** 20:.1f} MiB, {held / 2 ** 20:.1f} MiB of it "
+              f"held before the bakes ({card})", flush=True)
+
+    F = gpu.GpuBakeFlags
+    cfg = _gpu_spot_cfg(uv_tris)
+    utri = len(uv_tris) * 4 ** SUBDIV
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    counts, _, res, summary = _timed_bakes(cfg, utri, "spot gpu_chain_wrap",
+                                           card)
+    peak = torch.cuda.max_memory_allocated()
+    launches["gpu_chain_wrap"] = counts["exact_classify"]
+    _check_shape(res[0], len(uv_tris))
+    if launches["gpu_chain_wrap"] == 0:
+        raise SystemExit("spot gpu_chain_wrap never launched the exact "
+                         "kernel")
+    ot.reset_launches()
+    co = _bake(dataclasses.replace(cfg, bake_flags=F.PerformSetupAndBake
+                                   | F.ComputeOnly))
+    if ot.launches()["exact_classify"] != 0 or not _results_equal(co,
+                                                                   res[0]):
+        raise SystemExit("spot gpu_chain_wrap: the ComputeOnly dispatch "
+                         "launched the kernel or differs from the default "
+                         "engine's")
+    sub = _gpu_spot_cfg(uv_tris[:SPOT_SUBSET], F.PerformSetupAndBake
+                        | F.EnablePostDispatchInfoStats)
+    pipe = gpu.Pipeline()
+    r_card, p_card = pipe.dispatch(sub).execute()
+    t0 = time.perf_counter()
+    r_cpu, p_cpu = pipe.dispatch(sub, "cpu").execute()
+    cpu_s = time.perf_counter() - t0
+    if not _results_equal(r_card, r_cpu) or p_card != p_cpu:
+        raise SystemExit(f"spot gpu_chain_wrap, {SPOT_SUBSET} triangles: "
+                         "the card differs from the CPU")
+    summary.update(exact_launches=launches["gpu_chain_wrap"],
+                   peak_bytes=peak, held_bytes=held, cpu_s=cpu_s,
+                   cpu_tris=SPOT_SUBSET)
+    summaries["gpu_chain_wrap"] = summary
+    print(f"spot gpu_chain_wrap: exact launches "
+          f"{launches['gpu_chain_wrap'] // 5} per dispatch, ComputeOnly "
+          f"equal with none; {SPOT_SUBSET} triangles byte-equal to the CPU "
+          f"dispatch with PostDispatchInfo ({cpu_s:.1f} s on the CPU); peak "
+          f"device memory {peak / 2 ** 20:.1f} MiB, {held / 2 ** 20:.1f} MiB "
+          f"of it held before ({card})", flush=True)
+    return launches, summaries
+
+
+def spot_streams(tex, uv_tris, dev, card):
+    """The exact stage on the first batch's slot stream of each of
+    SPOT_STREAMS: kernel and twin equal, the work and its bound, both
+    versions' event time.  Returns {name: record}."""
+    from omm_tpu_torch.bake import (MAX_UTRI_PER_BATCH, Options, _config,
+                                    setup_work_items, split_tail_light)
+    from omm_tpu_torch.kernels import exact
+    descs = {name: desc for name, desc, _, _ in spot_workloads(tex, uv_tris)}
+    out = {}
+    for name in SPOT_STREAMS:
+        desc = descs[name]
+        opts = Options.from_flags(desc.bake_flags)
+        uvs = [it.uv_tri for it in setup_work_items(desc, opts)]
+        level = desc.max_subdivision_level
+        n = len(split_tail_light(list(range(len(uvs))), [max(
+            1, MAX_UTRI_PER_BATCH // 4 ** level)])[0])
+        args, kw, what = slot_streams(desc.texture, uvs,
+                                      _config(desc, opts), level, n, dev)
+        err = _kernel_equals_twin(args, kw, f"spot stream {name}")
+        work = exact.exact_work(*args, **kw)
+        bound_ms, bound_by = exact.bound(work)
+        ms = _cuda_ms(lambda: exact.exact_counts(*args, **kw))
+        plain_ms = _cuda_ms(lambda: exact.exact_counts(
+            *args, exact="torch", **kw), reps=5, burst=1, warm=1)
+        out[name] = {"items": n, "stream": what, "max_abs_err": err,
+                     "event_ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "work": work}
+        print(f"spot stream {name}, {n} items, {what}: kernel {ms:.4f} ms, "
+              f"twin {plain_ms:.4f} ms (events); bound {bound_ms:.6f} ms "
+              f"({bound_by}); " + ", ".join(f"{k} {v}" for k, v in
+                                            work.items()) + f" ({card})",
+              flush=True)
+    return out
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1065,20 +1377,12 @@ def main():
     err = 0
     for subdiv in (SUBDIV, 6):
         args, kw, what = slot_streams(tex, uvs, cfg, subdiv, BATCH, dev)
-        ka, kb = exact.exact_counts(*args, **kw)
-        ta, tb = exact.exact_counts(*args, exact="torch", **kw)
-        torch.cuda.synchronize()
-        e = max(int((ka - ta).abs().max()), int((kb - tb).abs().max()))
+        e = _kernel_equals_twin(args, kw, what)
         err = max(err, e)
         shp = exact.shape(kw["H"], kw["W"])
         print(f"kernel phase, {what}; launch {shp['threads']} threads x "
               f"{shp['blocks_per_sm']} blocks/SM, {shp['smem_bytes']} B "
               f"shared; max_abs_err {e}", flush=True)
-        if not (torch.equal(ka, ta) and torch.equal(kb, tb)):
-            raise SystemExit("kernel counts differ from the torch twin")
-        if int(((ka + kb) > 1).sum()) == 0:
-            raise SystemExit("no survivor straddles the cutoff: vacuous "
-                             "check")
         if subdiv == SUBDIV:
             bench = (args, kw)
         elif kw["H"] * kw["W"] <= 32:
@@ -1109,8 +1413,8 @@ def main():
     nd = _check_shape(got, N_TRIS)
     print(f"shape: {N_TRIS} indices, {nd} descriptors at subdiv {SUBDIV}, "
           f"{len(got.array_data)} bytes of states; 5 bakes byte-equal")
-    r_card = _card_equals_cpu(lambda: _desc(tex, uv_tris[:16]),
-                              "16-triangle bench bake")
+    r_card, _ = _card_equals_cpu(lambda: _desc(tex, uv_tris[:16]),
+                                 "16-triangle bench bake")
     _check_shape(r_card, 16)
 
     # ---- 6. nearest ----
@@ -1180,6 +1484,10 @@ def main():
         desc, N_TRIS * 4 ** SUBDIV, card)
     scene_launches, scene_sums, desc7, res7 = scene_phase(card)
     tools_launches = tools_phase(desc7, res7, card)
+
+    # ---- 13. spots (before 9) ----
+    spot_launches, spot_sums = spots_phase(tex, uv_tris, card)
+    streams = spot_streams(tex, uv_tris, dev, card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -1200,7 +1508,8 @@ def main():
                "surface.capi": surface_launches["capi"],
                "surface.tools": tools_launches,
                "scene.level7": scene_launches[7],
-               "scene.level9": scene_launches[9]}
+               "scene.level9": scene_launches[9],
+               **{f"spots.{k}": v for k, v in spot_launches.items()}}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
                                 "gpu_compute_only": co_sum,
@@ -1209,7 +1518,8 @@ def main():
                                 "farm": farm_sum,
                                 "surface": {**surface_sums,
                                             "tools_launches": tools_launches},
-                                "scene": scene_sums}, "card": card}))
+                                "scene": scene_sums, "spots": spot_sums},
+                      "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
         "source": "omm_tpu_torch/csrc/exact_classify.cu",
@@ -1218,7 +1528,7 @@ def main():
         "launches_per_bake": launches // 5,
         "max_abs_err": err, "ms": ms_dev, "event_ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None, "spot_streams": streams}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,7 @@ from omm_tpu_torch.planes import tex_cache  # noqa: E402
 
 from fixtures import (DEFAULT_INDICES, DEFAULT_TEXCOORDS,  # noqa: E402
                       expect_stats, mandelbrot, standard_circle)
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 
 def _bench_fields(n=8, subdiv=5):

@@ -15,6 +15,7 @@ from omm_tpu_torch.twophase import PackedStates  # noqa: E402
 
 from test_torch_twophase import (CASES, UO, _all_active, _cfg,  # noqa: E402
                                  _circle, _tris, port_inputs)
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 
 def _oracle(tex, cfg, tri, subdiv, st):

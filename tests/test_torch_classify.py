@@ -27,6 +27,7 @@ from omm_tpu_torch import twophase as ttp  # noqa: E402
 from omm_tpu_torch import types as ttypes  # noqa: E402
 
 from fixtures import sine_fp32, standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 MODES = list(omm.TextureAddressMode)
 UO = 3

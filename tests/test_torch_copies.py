@@ -8,6 +8,7 @@ MT19937 and the bit tricks, the debug stats, and the GPU baker's static
 resources."""
 import dataclasses
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from omm_tpu_torch import stats as tstats  # noqa: E402
 from omm_tpu_torch import texture as ttexture  # noqa: E402
 from omm_tpu_torch import types as ttypes  # noqa: E402
 from omm_tpu_torch.mt19937 import MT19937 as TMT  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 # the packages export a bake() function under the modules' name
 jbake = importlib.import_module("omm_tpu.bake")
@@ -234,6 +236,54 @@ def test_finalize_items(case):
         assert np.array_equal(np.asarray(got[k]), np.asarray(want[k])), k
     assert len(want["desc_array"]) > 0
 
+
+
+def test_jax_native_pinned_to_private_build(jax_native_pinned):
+    """The JAX package's native library is, for this module, the finished
+    private build (torch_native_guard), never the shared file that every
+    process builds on first use, and it runs."""
+    import torch_native_guard as guard
+    assert jax_native_pinned is not None
+    assert os.path.dirname(jax_native_pinned) == guard.OUT_DIR
+    assert jnative._SO == jax_native_pinned != os.path.join(
+        os.path.dirname(jnative.__file__), "libomm_native.so")
+    assert jnative.get_lib() is not None
+    assert jnative.all_uniform_u8(np.full(4099, 7, np.uint8)) == 7
+    assert jnative.all_uniform_u8(np.arange(4099, dtype=np.uint8)) == -1
+
+
+_RACE = """
+import ctypes, sys
+sys.path.insert(0, {tests!r})
+import numpy as np
+import torch_native_guard as guard
+path = guard.private_library(guard.SRC, {out!r})
+lib = ctypes.CDLL(path)
+a = np.full(1 << 16, 5, np.uint8)
+u8p = ctypes.POINTER(ctypes.c_uint8)
+lib.omm_all_uniform_u8.argtypes = [u8p, ctypes.c_size_t]
+assert lib.omm_all_uniform_u8(a.ctypes.data_as(u8p), a.size) == 5
+print(path)
+"""
+
+
+def test_private_native_build_under_concurrent_processes(tmp_path):
+    """Four processes that build the JAX package's native library into
+    one empty directory at once all load the same finished file and call
+    into it; no temporary is left behind."""
+    import subprocess
+    import sys
+    code = _RACE.format(tests=os.path.dirname(os.path.abspath(__file__)),
+                        out=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, [e for _, e in outs]
+    paths = {o.strip() for o, _ in outs}
+    assert len(paths) == 1
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [".lock", os.path.basename(paths.pop())])
 
 def test_finalize_packed_states_row_copy():
     """Items holding device-packed rows (PackedStates) serialize to the

@@ -23,6 +23,7 @@ from omm_tpu_torch.kernels import exact  # noqa: E402
 
 from fixtures import sine_fp32, sine_unorm8, standard_circle  # noqa: E402
 from test_torch_twophase import _cfg, _tris, port_inputs  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 B = host.B
 

@@ -20,6 +20,7 @@ torch.set_num_threads(2)
 import omm_tpu as omm  # noqa: E402
 import omm_tpu_torch as ot  # noqa: E402
 from omm_tpu_torch import convert  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 UTRI_BUDGET = 60_000
 

@@ -29,6 +29,7 @@ from omm_tpu_torch.types import BakeError, Result  # noqa: E402
 
 from fixtures import (hexagons, mandelbrot, sine_fp32,  # noqa: E402
                       standard_circle)
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 _JENUMS = {"bake_flags": jgpu.GpuBakeFlags, "global_format": omm.Format,
            "unknown_state_promotion": omm.UnknownStatePromotion,

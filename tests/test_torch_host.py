@@ -15,6 +15,7 @@ from omm_tpu.kernels import twophase as tp  # noqa: E402
 from omm_tpu_torch import host  # noqa: E402
 
 from test_torch_twophase import port_inputs  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 MODES = [omm.TextureAddressMode.Wrap, omm.TextureAddressMode.Mirror,
          omm.TextureAddressMode.Clamp, omm.TextureAddressMode.Border,

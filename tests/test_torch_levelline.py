@@ -16,6 +16,7 @@ from omm_tpu.kernels import levelline as ll  # noqa: E402
 from omm_tpu.kernels import pallas_classify as pk  # noqa: E402
 from omm_tpu_torch import bird_torch as tbird  # noqa: E402
 from omm_tpu_torch import levelline as tll  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 
 def _bits(a):

@@ -28,6 +28,7 @@ from omm_tpu_torch import convert  # noqa: E402
 from omm_tpu_torch.parallel import multihost as tmh  # noqa: E402
 
 from fixtures import standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -33,6 +33,7 @@ from omm_tpu_torch.kernels import exact  # noqa: E402
 from omm_tpu_torch.parallel import shard as tshard  # noqa: E402
 
 from fixtures import standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 CPU8 = ["cpu"] * 8
 

@@ -17,6 +17,7 @@ import omm_tpu_torch as ot  # noqa: E402
 from omm_tpu_torch import convert  # noqa: E402
 
 from fixtures import expect_stats, standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 
 def _descs(planes, tex_fmt=1, sampler=None, **fields):

@@ -24,6 +24,7 @@ from omm_tpu_torch import serialize as tser  # noqa: E402
 from omm_tpu_torch import types as ttypes  # noqa: E402
 
 from fixtures import standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN_STATS = dict(total_opaque=152, total_transparent=232,

@@ -19,6 +19,7 @@ from omm_tpu_torch import convert  # noqa: E402
 
 from fixtures import (DEFAULT_INDICES, DEFAULT_TEXCOORDS,  # noqa: E402
                       expect_stats, sine_fp32, standard_circle)
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 CIRCLE_STATS = dict(total_opaque=204, total_transparent=219,
                     total_unknown_transparent=39, total_unknown_opaque=50)

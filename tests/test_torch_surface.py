@@ -24,6 +24,7 @@ from omm_tpu_torch import capi, convert, integration, planes  # noqa: E402
 from omm_tpu_torch.allocator import StdAllocator  # noqa: E402
 
 from fixtures import standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 QUAD_TC = np.array([[0, 0], [0, 1], [1, 0], [1, 1]], np.float32)
 QUAD_IB = np.array([0, 1, 2, 3, 1, 2], np.uint32)

@@ -28,6 +28,7 @@ from omm_tpu import viewer as jviewer  # noqa: E402
 from omm_tpu_torch import cli, convert, tui, viewer  # noqa: E402
 
 from fixtures import standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")

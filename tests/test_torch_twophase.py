@@ -22,6 +22,7 @@ from omm_tpu_torch import types as ttypes  # noqa: E402
 from omm_tpu_torch.twophase import stage_d  # noqa: E402
 
 from fixtures import sine_unorm8, standard_circle  # noqa: E402
+from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
 B = host.B
 UO = 3
