@@ -130,13 +130,43 @@ and prints no result line):
              batch's slot stream of (a), (b), (d) and (f): kernel equal
              to its twin, exact_work, bound and both versions' event time
 
-Each path's counts (`omm_tpu_torch.launches()`: kernel launches and
-work items per route) are set to 0 just before its timed bakes and read
-just after (the mesh and surface paths: around each timed bake; the
-tools: around the whole of phase 12 c).  launches_by_path has a key for
+ 14. spec    (runs before phase 9, after 13) the single-sync batch
+             pipeline on a fresh bench texture: (a) the first bake runs
+             every batch on the discovery path (exact sizes, host count
+             reads; it records the caps entries), the second on the
+             capacity chain, capturing one CUDA graph per batch shape;
+             then 5 bakes on the chain (graph replays) in turns with 5
+             whose caps cache is emptied before each (the discovery
+             path): best and median of each, batches per path, captures,
+             replays, exact launches and count syncs per bake (the chain:
+             6 of 6 batches, no overflow, at most one count sync per
+             batch), all byte-equal; 16 triangles through the discovery,
+             capturing and replaying bakes on the card byte-equal to the
+             CPU's discovery and capacity-chain bakes; (b) the caps cache
+             seeded at an eighth of each capacity: every batch flags its
+             overflow, is rerun on the discovery path, stays byte-equal,
+             and its entry grows to the discovery path's; (c) the GPU
+             baker's dispatch, default engine and ComputeOnly, on the
+             chain after warm-up, byte-equal to each other and to its
+             discovery dispatch; (d) one profiled bench bake
+             (tools/profile_torch_bake.py --workload bench: kernel and
+             graph launch calls, omm.* labels, device idle share); and
+             torch.cuda.memory_reserved() after phases 13 and 14
+
+Every timed bake of phases 4-13 comes after 2 warm-ups, the first of
+which discovers the capacities and the second captures the graphs; every
+two-phase batch of the timed bakes must start on the capacity chain
+(overflows and reruns are counted and printed), and the timed bakes must
+equal the first warm-up.  Each path's counts
+(`omm_tpu_torch.launches()`: kernel launches and work items per route;
+`omm_tpu_torch.pipeline_counts()`: batches per path) are set to 0 just
+before its timed bakes and read just after (the mesh and surface paths:
+around each timed bake; the tools: around the whole of phase 12 c).  launches_by_path has a key for
 each path: surface.baker, surface.capi and surface.tools for phase 12
 (a) and (c), scene.level7 and scene.level9 for (b), spots.<name> for
-each bake of phase 13 (around its 5 timed bakes).
+each bake of phase 13 (around its 5 timed bakes), spec.<path> for phase
+14 (spec and discovery: 5 bakes each; overflow: the flagged bake and
+the one after it; gpu: one default-engine dispatch).
 jax and the JAX package omm_tpu are blocked from import for the whole
 run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
@@ -516,13 +546,30 @@ def _summary(utri, times):
             "median_mutri_s": utri / med / 1e6}
 
 
+def _counts():
+    """ot.launches() with the pipeline's counts as "pipeline.<name>" (0
+    for a package without them: an earlier checkout timed by
+    tools/time_torch_bake.py --package-root)."""
+    import omm_tpu_torch as ot
+    pc = getattr(ot, "pipeline_counts", dict)()
+    return {**ot.launches(), **{f"pipeline.{k}": pc.get(k, 0) for k in (
+        "spec", "spec_overflow", "discovery", "graph_capture",
+        "graph_replay", "count_sync")}}
+
+
 def _timed_bakes(desc, utri, what, card):
     """2 warm-up bakes (`_bake`), then 5 timed ones (each ending with the
     result on the host) with every count set to 0 just before them:
-    (counts after the 5, times, results, summary)."""
+    (counts after the 5, times, results, summary).  Every two-phase
+    batch of the timed bakes must start on the capacity chain (the
+    warm-ups discover the capacities and capture the graphs; a batch
+    that overflows its entry, which the last discovered batch of its
+    shape recorded, is rerun on the discovery path, as in the JAX
+    package), and the timed bakes must equal the first warm-up (on a
+    fresh texture, the discovery path)."""
     import omm_tpu_torch as ot
-    for _ in range(2):
-        _bake(desc)
+    first = _bake(desc)
+    _bake(desc)
     torch.cuda.synchronize()
     ot.reset_launches()
     times, results = [], []
@@ -530,7 +577,15 @@ def _timed_bakes(desc, utri, what, card):
         t0 = time.perf_counter()
         results.append(_bake(desc))  # numpy arrays: on the host
         times.append(time.perf_counter() - t0)
-    counts = ot.launches()
+    counts = _counts()
+    pipe = _per_bake(counts, "pipeline.")
+    print(f"{what}: pipeline per bake {json.dumps(pipe)}", flush=True)
+    if counts["pipeline.discovery"] != counts["pipeline.spec_overflow"]:
+        raise SystemExit(f"a timed {what} batch had no caps entry: "
+                         f"{json.dumps(pipe)}")
+    if not _results_equal(results[0], first):
+        raise SystemExit(f"the timed {what} bakes differ from the first "
+                         "warm-up (the discovery path)")
     summary = _summary(utri, times)
     best, med = summary["best_s"], summary["median_s"]
     print(f"{what}: {desc.index_count // 3} tris ({utri} utri): best "
@@ -739,7 +794,7 @@ FARM_TIMEOUT_S = 300
 def farm_worker(rank, n, coord, outdir):
     """One process of phase 11 (c) (run as this script with --farm-worker
     RANK N HOST:PORT DIR): join the farm over gloo, classify this rank's
-    half of the benchmark items on the card (a warm-up, then FARM_ROUNDS
+    half of the benchmark items on the card (2 warm-ups, then FARM_ROUNDS
     rounds that start at a barrier, each with the counts set to 0 just
     before it and read just after), bake its half of the triangles, and
     all_gather_object the blobs, times and launches; rank 0 writes them
@@ -757,7 +812,8 @@ def farm_worker(rank, n, coord, outdir):
     tex, uv_tris = _workload()
     desc = _desc(tex, uv_tris)
     part = mh.partition_items(mh.item_costs(desc).tolist(), n)[rank]
-    mh.classify_partition(desc, part)
+    for _ in range(2):  # discovers the capacities, captures the graphs
+        mh.classify_partition(desc, part)
     rounds = []
     for _ in range(FARM_ROUNDS):
         dist.barrier()
@@ -1335,6 +1391,191 @@ def spot_streams(tex, uv_tris, dev, card):
     return out
 
 
+def _bake_counted(desc, device="cuda"):
+    """(BakeResult, seconds, counts) of one bake, counts set to 0 just
+    before it and read just after."""
+    import omm_tpu_torch as ot
+    ot.reset_launches()
+    t0 = time.perf_counter()
+    res = _bake(desc, device)
+    return res, time.perf_counter() - t0, _counts()
+
+
+def _pipe(counts):
+    """The nonzero pipeline counts of one bake."""
+    return {k[9:]: v for k, v in counts.items()
+            if k.startswith("pipeline.") and v}
+
+
+def _need(counts, what, **want):
+    """Fail unless counts["pipeline.<k>"] (or "exact_classify") == v for
+    each k=v; a callable v is a predicate."""
+    for k, v in want.items():
+        got = counts["exact_classify" if k == "exact" else f"pipeline.{k}"]
+        if not (v(got) if callable(v) else got == v):
+            raise SystemExit(f"{what}: {k} {got}, want {v}; counts "
+                             f"{json.dumps(_pipe(counts))}")
+
+
+def spec_phase(card):
+    """Phase 14: the single-sync pipeline on the card.  Returns ({path:
+    exact launches}, {path: summary})."""
+    import dataclasses
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import batch as tbatch
+    from omm_tpu_torch import gpu
+    from omm_tpu_torch.bake import split_tail_light
+    nb = len(split_tail_light(list(range(N_TRIS)), [BATCH]))
+    utri = N_TRIS * 4 ** SUBDIV
+    tex, uv_tris = _workload()
+    desc = _desc(tex, uv_tris)
+
+    # (a) the first bake discovers every batch, the second captures
+    first, t_first, c = _bake_counted(desc)
+    _need(c, "first bench bake", discovery=nb, spec=0)
+    print(f"spec (a): first bake {t_first:.4f} s, all discovery: "
+          f"{json.dumps(_pipe(c))}")
+    res, t_cap, c = _bake_counted(desc)
+    _need(c, "second bench bake", spec=nb, discovery=0, spec_overflow=0,
+          graph_capture=lambda n: n >= 1, exact=nb)
+    print(f"spec (a): second bake {t_cap:.4f} s, captures "
+          f"{c['pipeline.graph_capture']}, replays "
+          f"{c['pipeline.graph_replay']}")
+    if not _results_equal(res, first):
+        raise SystemExit("the capturing bake differs from the discovery "
+                         "bake")
+    caps = dict(getattr(tex, tbatch.CAPS_ATTR))
+
+    def discover():
+        setattr(tex, tbatch.CAPS_ATTR, {})  # the discovery path
+        return _bake(desc)
+
+    paths = {"spec": lambda: _bake(desc), "discovery": discover}
+    times = {k: [] for k in paths}
+    counts = {k: {} for k in paths}
+    for r in range(5):
+        for name in (("spec", "discovery") if r % 2 == 0
+                     else ("discovery", "spec")):
+            ot.reset_launches()
+            t0 = time.perf_counter()
+            res = paths[name]()
+            times[name].append(time.perf_counter() - t0)
+            for k, v in _counts().items():
+                counts[name][k] = counts[name].get(k, 0) + v
+            if not _results_equal(res, first):
+                raise SystemExit(f"a {name} bake differs from the first "
+                                 "bake")
+    _need(counts["spec"], "5 spec bakes", spec=5 * nb, discovery=0,
+          spec_overflow=0, graph_capture=0, graph_replay=5 * nb,
+          count_sync=lambda n: n <= 5 * nb, exact=5 * nb)
+    _need(counts["discovery"], "5 discovery bakes", discovery=5 * nb,
+          spec=0, graph_replay=0, exact=5 * nb)
+    if getattr(tex, tbatch.CAPS_ATTR) != caps:
+        raise SystemExit("the discovery bakes recorded other caps entries")
+    sums, launches = {}, {}
+    for name in paths:
+        sm = _summary(utri, times[name])
+        sm.update(per_bake=_per_bake(counts[name], "pipeline."),
+                  exact_per_bake=counts[name]["exact_classify"] // 5,
+                  times_s=times[name])
+        sums[name] = sm
+        launches[name] = counts[name]["exact_classify"]
+        print(f"spec (a) {name} path, 5 bench bakes in turns: best "
+              f"{sm['best_s']:.4f} s median {sm['median_s']:.4f} s "
+              f"({sm['best_mutri_s']:.2f} M utri/s best); per bake "
+              f"{json.dumps(sm['per_bake'])}, exact launches "
+              f"{sm['exact_per_bake']} ({card})", flush=True)
+    print("spec (a): caps " + json.dumps(
+        {str(k): v for k, v in caps.items()}))
+
+    # (a) both paths against the CPU on 16 triangles
+    t16 = _workload()[0]
+    card16 = [_bake_counted(_desc(t16, uv_tris[:16])) for _ in range(3)]
+    _need(card16[2][2], "16-triangle replay", spec=1, graph_replay=1)
+    tc = _workload()[0]
+    cpu16 = [_bake_counted(_desc(tc, uv_tris[:16]), "cpu") for _ in range(2)]
+    _need(cpu16[1][2], "16-triangle CPU capacity chain", spec=1,
+          discovery=0)
+    if not all(_results_equal(r[0], cpu16[0][0]) for r in card16 + cpu16):
+        raise SystemExit("16 triangles: a path on the card or the CPU "
+                         "differs")
+    print("spec (a): 16 triangles, the card's discovery, capture and replay "
+          "bakes byte-equal to the CPU's discovery and capacity-chain "
+          f"bakes ({cpu16[0][1]:.1f} + {cpu16[1][1]:.1f} s on the CPU)",
+          flush=True)
+
+    # (b) forced overflow: an eighth of each capacity the bench needs
+    to = _workload()[0]
+    dto = _desc(to, uv_tris)
+    small = {k: (tuple(max(c // 8, 1) for c in Cs), max(K // 8, 1),
+                 tuple(max(n // 8, 1) for n in nbk))
+             for k, (Cs, K, nbk) in caps.items()}
+    setattr(to, tbatch.CAPS_ATTR, dict(small))
+    res, t_of, c = _bake_counted(dto)
+    _need(c, "overflow bake", spec=nb, spec_overflow=nb, discovery=nb)
+    if not _results_equal(res, first):
+        raise SystemExit("the overflowed bake differs from the discovery "
+                         "bake")
+    if getattr(to, tbatch.CAPS_ATTR) != caps:
+        raise SystemExit("the overflow's rerun did not record the entries "
+                         "the discovery path records")
+    res2, _, c2 = _bake_counted(dto)
+    _need(c2, "bake after the overflow", spec=nb, spec_overflow=0,
+          discovery=0)
+    if not _results_equal(res2, first):
+        raise SystemExit("the bake after the overflow differs")
+    seeded = json.dumps({str(k): v for k, v in small.items()})
+    print(f"spec (b): caps seeded at an eighth, {seeded}: {nb} of {nb} "
+          f"batches flagged and rerun ({t_of:.4f} s), byte-equal; entries "
+          "grew to "
+          "the discovery path's; next bake all capacity chain "
+          f"({json.dumps(_pipe(c2))})", flush=True)
+    sums["overflow"] = {"seconds": t_of, "counts": _pipe(c)}
+    launches["overflow"] = c["exact_classify"] + c2["exact_classify"]
+
+    # (c) the GPU baker, default engine and ComputeOnly
+    F = gpu.GpuBakeFlags
+    cfg = _gpu_cfg(_rgba(tex), uv_tris)
+    co = dataclasses.replace(cfg, bake_flags=F.PerformSetupAndBake
+                             | F.ComputeOnly)
+    g_first = _bake(cfg)
+    for d in (cfg, co, co):
+        _bake(d)
+    r_def, t_def, c_def = _bake_counted(cfg)
+    r_co, t_co, c_co = _bake_counted(co)
+    _need(c_def, "gpu default engine", spec=nb, discovery=0,
+          graph_replay=nb, exact=nb)
+    _need(c_co, "gpu ComputeOnly", spec=nb, discovery=0, graph_replay=nb,
+          exact=0)
+    if not (_results_equal(r_def, g_first) and _results_equal(r_co, g_first)):
+        raise SystemExit("the GPU baker's capacity-chain dispatches differ "
+                         "from its discovery dispatch")
+    print(f"spec (c): gpu dispatch on the capacity chain, default "
+          f"{t_def:.4f} s ({nb} exact launches), ComputeOnly {t_co:.4f} s "
+          "(none), byte-equal to the discovery dispatch", flush=True)
+    sums["gpu"] = {"default_s": t_def, "compute_only_s": t_co}
+    launches["gpu"] = c_def["exact_classify"]
+
+    # (d) one profiled bench bake
+    root = os.path.dirname(os.path.abspath(__file__))
+    prof = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "profile_torch_bake.py"),
+         "--workload", "bench"], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    print(prof.stdout, end="", flush=True)
+    if prof.returncode != 0:
+        raise SystemExit(f"profile_torch_bake.py failed: {prof.stderr}")
+    sums["profile"] = [ln for ln in prof.stdout.splitlines()
+                       if ln.startswith(("profiled", "pipeline", "launch",
+                                         "device busy", "exact kernel"))]
+    print(f"memory_reserved after phase 14: "
+          f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB "
+          f"(allocated {torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB) "
+          f"({card})", flush=True)
+    return launches, sums
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1488,6 +1729,13 @@ def main():
     # ---- 13. spots (before 9) ----
     spot_launches, spot_sums = spots_phase(tex, uv_tris, card)
     streams = spot_streams(tex, uv_tris, dev, card)
+    print(f"memory_reserved after phase 13: "
+          f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB (allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB) ({card})",
+          flush=True)
+
+    # ---- 14. spec (before 9) ----
+    spec_launches, spec_sums = spec_phase(card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -1509,7 +1757,8 @@ def main():
                "surface.tools": tools_launches,
                "scene.level7": scene_launches[7],
                "scene.level9": scene_launches[9],
-               **{f"spots.{k}": v for k, v in spot_launches.items()}}
+               **{f"spots.{k}": v for k, v in spot_launches.items()},
+               **{f"spec.{k}": v for k, v in spec_launches.items()}}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
                                 "gpu_compute_only": co_sum,
@@ -1518,7 +1767,8 @@ def main():
                                 "farm": farm_sum,
                                 "surface": {**surface_sums,
                                             "tools_launches": tools_launches},
-                                "scene": scene_sums, "spots": spot_sums},
+                                "scene": scene_sums, "spots": spot_sums,
+                                "spec": spec_sums},
                       "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",

@@ -68,12 +68,21 @@ def launches() -> dict:
     `routes`)."""
     with routes.LOCK:
         out = {"exact_classify": exact_kernel.LAUNCHES}
-        out.update({f"route.{k}": v for k, v in routes.COUNTS.items()})
+        out.update({f"route.{k}": routes.COUNTS[k] for k in routes.NAMES})
     return out
 
 
+def pipeline_counts() -> dict:
+    """The two-phase engine's batches per path, CUDA graphs captured and
+    replayed, and host count-syncs in this process, by name (see
+    `routes.PIPELINE`)."""
+    with routes.LOCK:
+        return {k: routes.COUNTS[k] for k in routes.PIPELINE}
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count and every route's count to 0."""
+    """Set every kernel's launch count, every route's count and every
+    pipeline count to 0."""
     with routes.LOCK:
         exact_kernel.LAUNCHES = 0
         routes.reset()
@@ -89,4 +98,5 @@ __all__ = [
     "get_num_micro_triangles", "MAX_SUBDIV_LEVEL", "LIBRARY_VERSION",
     "Baker", "Logger", "MessageSeverity",
     "capi", "classify_work_items_batches", "debug", "gpu", "integration",
-    "launches", "parallel", "reset_launches", "serialize", "tui", "viewer"]
+    "launches", "parallel", "pipeline_counts", "reset_launches",
+    "serialize", "tui", "viewer"]

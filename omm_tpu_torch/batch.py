@@ -1,9 +1,26 @@
 """Batched classification of work items through the two-phase engine.
 
-Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`.
-Per batch: class planes (cached per texture), then `stage_ab`,
-`stage_c_mip` for every mip, and `stage_d`, all on the given device; the
-packed states come back in one device-to-host copy.
+Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`,
+with its single-sync pipeline.  A batch's cap key is the JAX package's:
+(subdiv, descent levels, items, all active).  The texture's caps cache
+(`texture._omm_torch_caps`, the JAX package's `_omm_caps`) maps a key to
+the capacities (per-level parents, survivors, per-mip blocks) that the
+discovery path saw, with headroom (`host.caps_entry`).
+
+  - A batch whose key is cached runs its whole stage chain at those
+    capacities (`twophase.spec_chain`): on a card as one CUDA graph
+    (`graphs`), on the CPU eagerly.  Every cached batch is enqueued
+    before any is drained; each payload, [meta int32s | packed rows],
+    comes to the host in one copy (pinned memory on a card).
+  - The drain reads each payload's meta.  A flagged overflow, or a key
+    not in the cache, sends the batch to the discovery path: the
+    exact-size stages (`stage_ab`, `stage_c_mip` for every mip,
+    `stage_d`), which read each count on the host and record the
+    batch's caps entry.
+
+Which path a batch takes depends on the caps cache alone: setting or
+emptying `texture._omm_torch_caps` chooses it.  Both give the same
+bytes.
 
 Items outside the engine's fast path take the JAX package's slow routes
 (twophase `_classify_slow`) on the same device through
@@ -17,10 +34,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from . import engine, geom, host, native, planes, routes
+from . import engine, geom, graphs, host, native, planes, routes
 from .host import TILE
 from .planes import check_device
-from .twophase import PackedStates, stage_ab, stage_c_mip, stage_d
+from .twophase import (PackedStates, spec_chain, stage_ab, stage_c_mip,
+                       stage_d)
 from .types import OpacityState, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
@@ -100,50 +118,151 @@ def item_tables(uv_arr: np.ndarray, device):
     return uv_flat, ccw
 
 
-def _run_batch(texture, cfg, items, subdiv, fast, out, all_active, precomp,
-               device, exact):
-    """Classify items[fast] (all on the fast path) into out[fast]."""
-    T = len(fast)
-    M = get_num_micro_triangles(subdiv)
-    uv_flat, ccw = item_tables(np.stack([items[i][0] for i in fast]),
-                               device)
-    active_np = None
-    active = None
-    if not all_active:
-        active_np = np.stack([np.ones(M, bool) if items[i][1] is None
-                              else items[i][1] == UO for i in fast])
-        active = torch.from_numpy(active_np).to(device)
+#: the attribute of a texture that holds the port's caps cache
+CAPS_ATTR = "_omm_torch_caps"
 
-    # record_function labels name the stages in torch.profiler traces
-    # (the JAX engine's jax.named_scope labels)
-    with record_function("omm.class_planes"):
-        bp = batch_planes(texture, cfg, precomp, device)
+
+class _Batch:
+    """A fast-path batch: its items, the key of its capacities, and what
+    its chain reads (host tables and the cached planes)."""
+
+    def __init__(self, texture, cfg, items, subdiv, fast, out, all_active,
+                 precomp, device, exact):
+        self.texture, self.cfg, self.items = texture, cfg, items
+        self.subdiv, self.fast, self.out = subdiv, fast, out
+        self.all_active, self.device, self.exact = all_active, device, exact
+        self.T = len(fast)
+        self.M = get_num_micro_triangles(subdiv)
+        self.uv_arr = np.stack([items[i][0] for i in fast])
+        self.active_np = None
+        if not all_active:
+            self.active_np = np.stack(
+                [np.ones(self.M, bool) if items[i][1] is None
+                 else items[i][1] == UO for i in fast])
+        # record_function labels name the stages in torch.profiler traces
+        # (the JAX engine's jax.named_scope labels)
+        with record_function("omm.class_planes"):
+            self.bp = batch_planes(texture, cfg, precomp, device)
+        self.cap_key = (subdiv, tuple(self.bp["levels"]), self.T,
+                        bool(all_active))
+
+    def host_inputs(self):
+        """(T, 6) fp32 UVs, (T,) int32 winding and, for a partial batch,
+        the (T, M) bool active mask, as CPU tensors."""
+        uv_flat, ccw = item_tables(self.uv_arr, "cpu")
+        if self.active_np is None:
+            return (uv_flat, ccw)
+        return (uv_flat, ccw, torch.from_numpy(self.active_np))
+
+    def write_back(self, packed):
+        """Put the batch's (T, M/4) packed rows into its items' results:
+        PackedStates when all its items are fully active, else states
+        with only the active micro-triangles replaced."""
+        for t, i in enumerate(self.fast):
+            if self.all_active:
+                self.out[i] = PackedStates(packed[t], self.M)
+                continue
+            unp = native.unpack_2bit_seq(packed[t], self.M)
+            states = self.items[i][1]
+            if states is None:
+                self.out[i] = unp
+            else:
+                act = self.active_np[t]
+                st = states.copy()
+                st[act] = unp[act]
+                self.out[i] = st
+
+
+def _caps(texture) -> dict:
+    """The texture's caps cache (created on first use)."""
+    return texture.__dict__.setdefault(CAPS_ATTR, {})
+
+
+def _run_batch(job):
+    """The discovery path: classify the batch at exact sizes, reading
+    each count on the host, and record its caps entry."""
+    bp, cfg, subdiv = job.bp, job.cfg, job.subdiv
+    uv_flat, ccw = item_tables(job.uv_arr, job.device)
+    active = None
+    if not job.all_active:
+        active = torch.from_numpy(job.active_np).to(job.device)
+    routes.count("discovery")
     with record_function("omm.stage_ab"):
-        res = run_stage_ab(bp, uv_flat, active, subdiv, all_active)
+        res = run_stage_ab(bp, uv_flat, active, subdiv, job.all_active)
     with record_function("omm.stage_c"):
         mip_counts = [run_stage_c(bp, res, mi, uv_flat, ccw, subdiv, cfg,
-                                  exact)
-                      for mi in range(texture.mip_count)]
+                                  job.exact)
+                      for mi in range(len(bp["mips"]))]
     with record_function("omm.stage_d"):
         packed = stage_d(res["sides"], res["nodes"], res["ids"], mip_counts,
-                         T=T, subdiv=subdiv, levels=bp["levels"],
+                         T=job.T, subdiv=subdiv, levels=bp["levels"],
                          fmt=cfg.fmt, promotion=cfg.promotion,
                          cutoff_gt=cfg.cutoff_gt, cutoff_le=cfg.cutoff_le)
         packed = packed.cpu().numpy()  # the batch's device-to-host copy
+    _caps(job.texture)[job.cap_key] = host.caps_entry(res["Cs"], res["K"],
+                                                      res["padMs"])
+    job.write_back(packed)
 
-    for t, i in enumerate(fast):
-        if all_active:
-            out[i] = PackedStates(packed[t], M)
-            continue
-        unp = native.unpack_2bit_seq(packed[t], M)
-        states = items[i][1]
-        if states is None:
-            out[i] = unp
-        else:
-            act = active_np[t]
-            st = states.copy()
-            st[act] = unp[act]
-            out[i] = st
+
+def _graph_key(job):
+    """What a batch's graph is built from, but its capacities: the cap
+    key, the planes it reads (by identity: the texture's cache holds
+    them), their geometry, the configuration's states and the exact
+    stage's engine."""
+    bp, cfg = job.bp, job.cfg
+    planes_read = tuple(id(t) for t in bp["planes"]) + tuple(
+        id(t) for lv in bp["cls_lv"] for t in lv)
+    return (job.cap_key, planes_read, tuple(bp["mips"]), tuple(bp["pads"]),
+            tuple(bp["periods"]), tuple(bp["HW"]), tuple(bp["rcps"]),
+            float(cfg.alpha_cutoff), int(cfg.fmt), int(cfg.promotion),
+            int(cfg.cutoff_gt), int(cfg.cutoff_le), job.exact)
+
+
+def _enqueue_spec(job):
+    """Start the batch's capacity chain if its key is cached: returns
+    (caps, host payload, CUDA event or None), or None."""
+    entry = _caps(job.texture).get(job.cap_key)
+    if entry is None:
+        return None
+    Cs, K_cap, nblks = entry
+    bp, cfg = job.bp, job.cfg
+    routes.count("spec")
+
+    def chain(uv_flat, ccw, active=None):
+        return spec_chain(
+            bp["cls_lv"], bp["planes"], uv_flat, ccw, active,
+            subdiv=job.subdiv, levels=tuple(bp["levels"]), caps=tuple(Cs),
+            K_cap=K_cap, nblks=tuple(nblks), mips=bp["mips"],
+            pads=bp["pads"], ntxs=bp["ntxs"], periods=bp["periods"],
+            HWs=bp["HW"], rcps=bp["rcps"], all_active=job.all_active,
+            alpha_cutoff=float(cfg.alpha_cutoff), fmt=cfg.fmt,
+            promotion=cfg.promotion, cutoff_gt=cfg.cutoff_gt,
+            cutoff_le=cfg.cutoff_le, exact=job.exact)
+
+    if job.device.type == "cuda":
+        buf, ev = graphs.run(job.texture, job.device,
+                             _graph_key(job), entry,
+                             job.host_inputs(), chain)
+        return entry, buf, ev
+    with record_function("omm.spec"):
+        return entry, chain(*job.host_inputs()), None
+
+
+def _drain_spec(job, pending) -> bool:
+    """Read a batch's payload: write its rows back and return True, or
+    return False where its meta flags an overflow."""
+    _, buf, ev = pending
+    if ev is not None:
+        ev.synchronize()
+    routes.count("count_sync")
+    buf = buf.numpy()
+    m = len(job.bp["levels"]) - 1
+    hdr = 4 * (m + 2 + len(job.bp["mips"]))
+    if int(buf[:hdr].view(np.int32)[m + 1]) != 0:
+        routes.count("spec_overflow")
+        return False
+    job.write_back(buf[hdr:].reshape(job.T, job.M // 4))
+    return True
 
 
 def classify_work_items_batches(texture, cfg, batches, subdiv, *,
@@ -164,7 +283,10 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     2-bit rows) for every fast-path item of a batch whose fast-path
     items are all fully active, else (M,) uint8 arrays.  Items with
     nothing left to classify come back unchanged.  Items off the fast
-    path go through `engine.resample_fine_item`."""
+    path go through `engine.resample_fine_item`.  A batch whose cap key
+    is in the texture's caps cache runs its chain at the cached
+    capacities; the others, and those that overflow them, run the
+    discovery path, which records their entries (module docstring)."""
     device = check_device(device)
     subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
                else [int(s) for s in subdiv])
@@ -216,13 +338,21 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
                 for sd, uvs in fast_uvs.items() if uvs}
 
+    # every cached batch's chain is enqueued before any is drained; the
+    # rest, and every batch whose meta flags an overflow, take the
+    # discovery path after the drain, in batch order
+    jobs = []
     for (items, out, todo, mins), fast, sd in zip(routed, fast_lists,
                                                   subdivs):
         if fast:
             routes.count("fast_path", len(fast))
-            _run_batch(texture, cfg, items, sd, fast, out,
-                       all(mins[i] == UO for i in fast), precomps[sd],
-                       device, exact)
+            job = _Batch(texture, cfg, items, sd, fast, out,
+                         all(mins[i] == UO for i in fast), precomps[sd],
+                         device, exact)
+            jobs.append((job, _enqueue_spec(job)))
+    for job, pending in jobs:
+        if pending is None or not _drain_spec(job, pending):
+            _run_batch(job)
     for items, out, i, sd in slow:
         st = items[i][1]
         if st is None:

@@ -187,6 +187,33 @@ def _fast_path_ok(texture: Texture, cfg, uv_tri: np.ndarray,
     return True
 
 
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _bucket(n: int) -> int:
+    """Smallest capacity in {2^k, 1.5*2^k} >= n: tight enough to bound
+    the padded work, coarse enough to bound the captured graphs."""
+    p = _next_pow2(max(n, 1))
+    if (p // 4) * 3 >= n:
+        return (p // 4) * 3
+    return p
+
+
+def caps_entry(Cs, K: int, padMs) -> tuple:
+    """The caps-cache entry (Cs caps, K cap, per-mip block caps) for a
+    batch whose true counts were Cs (per level), K (survivors) and padMs
+    (per-mip padded slot totals): the discovery path's headroom of
+    twophase._run_batch_sync, applied once to the true counts."""
+    nblks = [(p + B - 1) // B for p in padMs]
+    return (tuple(max(_bucket(c + c // 16 + 64), 512) for c in Cs),
+            max(_bucket(K + K // 16 + 64), 4 * B),
+            tuple(max(_bucket(n + n // 8 + 8), 8) for n in nblks))
+
+
 def _skip_final_p(levels, all_active: bool) -> bool:
     """True when the final level's window test is skipped: all-active
     batches whose last descent step is one level (its children go

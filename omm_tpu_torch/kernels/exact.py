@@ -21,6 +21,8 @@ stream, and `bound` turns that into the least time the card could take.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .. import routes
@@ -29,15 +31,33 @@ from ..host import B, TILE, wrap_origin
 from ..levelline import (f32, level_line_values_kernel, tri_params)
 
 #: kernel launches made by `exact_counts` in this process, counted under
-#: `routes.LOCK` (mesh slots launch from several threads)
+#: `routes.LOCK` (mesh slots launch from several threads); a launch that
+#: a CUDA graph captures counts at each replay of the graph
 LAUNCHES = 0
 
+#: per thread: launches recorded into the CUDA graph this thread is
+#: capturing (`graphs` reads them with `captured_launches`)
+_CAPTURED = threading.local()
 
-def count_launch() -> None:
-    """Add one launch to LAUNCHES."""
+
+def count_launch(n: int = 1) -> None:
+    """Add n launches to LAUNCHES, or, while this thread's current stream
+    is capturing a CUDA graph (which launches nothing yet), to the
+    graph's count."""
     global LAUNCHES
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        _CAPTURED.n = getattr(_CAPTURED, "n", 0) + n
+        return
     with routes.LOCK:
-        LAUNCHES += 1
+        LAUNCHES += n
+
+
+def captured_launches() -> int:
+    """The launches this thread recorded into graphs since the last call
+    (and set that count to 0)."""
+    n = getattr(_CAPTURED, "n", 0)
+    _CAPTURED.n = 0
+    return n
 
 
 def derive_slot_geometry(ids, uv6, ccw, bt, *, subdiv, pad, ntx, size,
@@ -209,7 +229,7 @@ def exact_counts_torch(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv,
     below = torch.empty_like(above)
     for c0, c1 in _chunks(nblk, H, W):
         a, b = _counts_chunk(
-            planeP, block_tile[c0:c1].repeat_interleave(B),
+            planeP, block_tile[c0:c1, None].expand(c1 - c0, B).reshape(-1),
             ids_slot[c0:c1].reshape(-1), uv6, ccw, subdiv=subdiv, pad=pad,
             ntx=ntx, size=size, period=period, H=H, W=W, rcp=rcp,
             alpha_cutoff=alpha_cutoff)
@@ -257,7 +277,7 @@ def exact_work(planeP, block_tile, ids_slot, uv6, ccw, *, subdiv, pad,
     nblk = ids_slot.shape[0]
     need = torch.zeros(planeP.shape, dtype=torch.bool, device=planeP.device)
     for c0, c1 in _chunks(nblk, H, W):
-        bt = block_tile[c0:c1].repeat_interleave(B)
+        bt = block_tile[c0:c1, None].expand(c1 - c0, B).reshape(-1)
         st = _chunk_state(planeP, bt, ids_slot[c0:c1].reshape(-1), uv6, ccw,
                           subdiv=subdiv, pad=pad, ntx=ntx, size=size,
                           period=period, H=H, W=W)

@@ -1,6 +1,8 @@
 """The two-phase engine's stage programs in torch ops.
 
-Counterparts of `omm_tpu.kernels.twophase`'s device programs:
+Counterparts of `omm_tpu.kernels.twophase`'s device programs, in two
+forms.  The exact-size form is the discovery path, which learns a
+batch's counts:
 
   stage_ab     _stageAB: dense level-0 window resolve, per-level
                compaction and child expansion, survivor compaction, and
@@ -11,13 +13,30 @@ Counterparts of `omm_tpu.kernels.twophase`'s device programs:
   nearest_sides, resolve_nearest_phase1
                _nearest_sides and the nearest filter's phase-1 resolve
 
-The JAX programs run at static capacities ("buckets") with an overflow
-flag, because every host sync crossed a slow link.  Here each level's
-count is read when it is needed and every tensor has its exact size:
-compaction is boolean-mask selection (scan order, like the stable sort
-it replaces), and no lane is ever invalid.  XLA's clamped gathers and
-dropped scatters therefore never arise, except in `sides_for`, whose
-class-plane lookup clamps explicitly as XLA's 2-D gather does.
+Here each level's count is read on the host when it is needed and every
+tensor has its exact size: compaction is boolean-mask selection (scan
+order, like the stable sort it replaces) and no lane is invalid.
+
+The capacity form is the speculative path, which runs at the counts the
+discovery path saw (with headroom, `host.caps_entry`) and reads nothing
+on the host, so that a batch's whole chain can be captured as one CUDA
+graph:
+
+  compact_scan   _compact_sort: compaction in scan order to a capacity
+  stage_ab_spec  _stageAB at capacities, with its meta [C_1..C_m, K,
+                 flag, padM per mip]
+  stage_c_spec   _stageC_mip at a block capacity
+  stage_d_spec   the count merge and 2-bit pack over the capacity lanes,
+                 and the payload [meta int32s | packed rows]
+
+A count above its capacity sets the meta's flag, and the batch is
+rerun on the discovery path.  Lanes past a count are invalid.  XLA
+drops out-of-range scatters and clamps gathers, where torch faults, so
+every capacity buffer has a dump lane past its end that takes the
+invalid lanes' writes, every invalid lane holds an in-range id (0), and
+every consumer masks by the lanes' validity, as `kvalid` does in the JAX
+programs.  `sides_for`'s class-plane lookup clamps explicitly, as XLA's
+2-D gather does.
 """
 from __future__ import annotations
 
@@ -28,7 +47,8 @@ from torch.profiler import record_function
 
 from . import routes
 from .bird_torch import bary_cols, corner_cols, tri6_of
-from .host import B, TILE, _nearest_phase1_windows, _period_for, wrap_origin
+from .host import (B, TILE, _nearest_phase1_windows, _period_for,
+                   _skip_final_p, wrap_origin)
 from .kernels.exact import exact_counts
 from .levelline import f32, get_state_from_coverage
 from .planes import check_device, class_plane_cached
@@ -103,15 +123,15 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
     t*4^l + n of the tested nodes after level 0), ids (the K exact-stage
     survivors, flat t*M + m, in scan order), Cs (per-level parent
     counts), K, slots (per mip, each survivor's slot) and padMs (per
-    mip, the B-padded slot total)."""
+    mip, the B-padded slot total).  Each count it reads on the host is
+    counted as routes' count_sync."""
     device = uv_flat.device
     T = uv_flat.shape[0]
     M = get_num_micro_triangles(subdiv)
     m = len(levels) - 1
     N0 = 4 ** levels[0]
     span0 = M // N0
-    skip = all_active and len(levels) >= 2 \
-        and levels[-1] - levels[-2] == 1
+    skip = _skip_final_p(levels, all_active)
 
     node = torch.arange(T * N0, dtype=torch.int64, device=device)
     side0 = sides_for(node & (N0 - 1), node >> (2 * levels[0]), levels[0],
@@ -131,6 +151,7 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
         E = 4 ** (li - levels[i - 1])
         par = node[unres]
         Cs.append(int(par.shape[0]))
+        routes.count("count_sync")
         jj = torch.arange(E, dtype=torch.int64, device=device)
         node = (par[:, None] * E + jj[None, :]).reshape(-1)
         if i == m and skip:
@@ -143,11 +164,13 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
         nodes.append(node)
         if i < m:
             unres = side_i == 0
-        elif all_active:
-            ids = node[side_i == 0]
         else:
-            ok = active[node >> (2 * subdiv), node & (M - 1)]
-            ids = node[ok & (side_i == 0)]
+            if all_active:
+                ids = node[side_i == 0]
+            else:
+                ok = active[node >> (2 * subdiv), node & (M - 1)]
+                ids = node[ok & (side_i == 0)]
+            routes.count("count_sync")
     K = int(ids.shape[0])
 
     sv_t = ids // M
@@ -181,6 +204,7 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
         slot[order] = offsets + rank
         slots.append(slot)
         padMs.append(int((offsets[-1] + ((rank[-1] + B) // B) * B).item()))
+        routes.count("count_sync")
     return {"sides": sides, "nodes": nodes, "ids": ids, "Cs": Cs, "K": K,
             "slots": slots, "padMs": padMs}
 
@@ -196,16 +220,21 @@ def slot_stream(uv_flat, ids, slot, padM, *, subdiv, w, h, pad, ntx,
     ids_slot = torch.full((padM,), -1, dtype=torch.int32, device=device)
     ids_slot[slot] = ids.to(torch.int32)
     ids_slot = ids_slot.reshape(nblk, B)
+    return block_tiles(uv_flat, ids_slot, subdiv=subdiv, w=w, h=h, pad=pad,
+                       ntx=ntx, period=period), ids_slot
 
+
+def block_tiles(uv_flat, ids_slot, *, subdiv, w, h, pad, ntx, period):
+    """(nblk,) int32 tile of each block of a slot stream: the tile of its
+    first slot's survivor, 0 for an empty block."""
     M = get_num_micro_triangles(subdiv)
     first = ids_slot[:, 0].to(torch.int64)
     fb = torch.clamp_min(first, 0)
     fbu, fbv, fbd = bary_cols(fb % M, subdiv)
     fx0, fy0 = window_origin(tri6_of(uv_flat, fb // M), fbu, fbv, fbd, w, h)
     fx0, fy0 = wrap_origin(fx0, fy0, period)
-    block_tile = torch.where(first >= 0, tile_of(fx0, fy0, pad, ntx),
-                             0).to(torch.int32)
-    return block_tile, ids_slot
+    return torch.where(first >= 0, tile_of(fx0, fy0, pad, ntx),
+                       0).to(torch.int32)
 
 
 def stage_c_mip(planeP, uv_flat, ccw, ids, slot, padM, *, subdiv, w, h,
@@ -233,38 +262,268 @@ def stage_d(sides, nodes, ids, mip_counts, *, T, subdiv, levels, fmt,
     sequential 2-bit layout: (T, M/4) uint8.  Level 0's sides are the
     base; each later level overwrites its tested nodes' rows; the exact
     survivors' states come last."""
-    device = ids.device
     M = get_num_micro_triangles(subdiv)
     N0 = 4 ** levels[0]
-    K = ids.shape[0]
+    final = merge_counts(mip_counts, fmt, promotion, cutoff_gt, cutoff_le)
+    base = map_side(sides[0], cutoff_gt, cutoff_le)[:, None].expand(
+        T * N0, M // N0).reshape(-1)
+    for i in range(1, len(sides)):
+        span = M // (4 ** levels[i])
+        base.view(-1, span)[nodes[i - 1]] = map_side(
+            sides[i], cutoff_gt, cutoff_le)[:, None]
+    base[ids] = final.to(torch.uint8)
 
-    above = torch.zeros(K, dtype=torch.int32, device=device)
-    below = torch.zeros(K, dtype=torch.int32, device=device)
-    alive = torch.ones(K, dtype=torch.bool, device=device)
+    s = base.view(T, M // 4, 4)
+    return (s[..., 0] | (s[..., 1] << 2) | (s[..., 2] << 4)
+            | (s[..., 3] << 6))
+
+
+def map_side(s, cutoff_gt, cutoff_le):
+    """uint8 state of a window side: +1 -> cutoff_gt, -1 -> cutoff_le,
+    0 -> 0 (Transparent; overwritten by a finer level or the exact
+    stage)."""
+    return torch.where(s == 1, int(cutoff_gt),
+                       torch.where(s == -1, int(cutoff_le), 0)
+                       ).to(torch.uint8)
+
+
+def merge_counts(mip_counts, fmt, promotion, cutoff_gt, cutoff_le):
+    """Final int32 states of the survivors from their per-mip (above,
+    below) counts: a mip adds to a survivor only while the mips before
+    it left the survivor's state unknown."""
+    above = torch.zeros_like(mip_counts[0][0])
+    below = torch.zeros_like(above)
+    alive = torch.ones_like(above, dtype=torch.bool)
     for a, b in mip_counts:
         above = above + torch.where(alive, a, 0)
         below = below + torch.where(alive, b, 0)
         st = get_state_from_coverage(fmt, promotion, cutoff_gt, cutoff_le,
                                      above, below)
         alive = alive & ~((st == UO) | (st == UT))
-    final = get_state_from_coverage(fmt, promotion, cutoff_gt, cutoff_le,
-                                    above, below)
+    return get_state_from_coverage(fmt, promotion, cutoff_gt, cutoff_le,
+                                   above, below)
 
-    lut = torch.tensor([int(cutoff_le), 0, int(cutoff_gt)],
-                       dtype=torch.uint8, device=device)
 
-    def map_side(s):
-        return lut[(s + 1).to(torch.int64)]
+# ---------------------------------------------------------------------------
+# the capacity form (speculative path)
+# ---------------------------------------------------------------------------
 
-    base = map_side(sides[0]).repeat_interleave(M // N0)
-    for i in range(1, len(sides)):
+#: tile key of an invalid survivor lane (sorts after every real tile) and
+#: the slot of one (past every block capacity): twophase's values
+INVALID_TILE = 0x7FFFFF00
+SENTINEL = 0x7FFFFF00
+
+
+def compact_scan(mask, payload, cap: int):
+    """payload[mask] in scan order, in `cap` lanes: (compacted (cap,),
+    count, a 0-d int64 tensor).  Lanes past the count hold 0; a count
+    above cap keeps the first cap.  One cumulative sum and one scatter,
+    whose masked-out lanes land in a dump lane past the end."""
+    pos = torch.cumsum(mask, 0) - 1
+    cnt = pos[-1] + 1
+    tgt = torch.where(mask & (pos < cap), pos, cap)
+    out = torch.zeros(cap + 1, dtype=payload.dtype, device=payload.device)
+    return out.scatter_(0, tgt, payload)[:cap], cnt
+
+
+def stage_ab_spec(cls_levels, uv_flat, active, *, subdiv, levels, caps,
+                  K_cap, mips, pads, ntxs, periods, all_active):
+    """stage_ab at capacities: caps[i-1] parent lanes at level i, K_cap
+    survivor lanes; `_stageAB`'s program (the step-1 tail included).
+
+    Returns a dict: sides (per level, int8 over the level's lanes),
+    nodes (per level after 0: (flat ids, valid)), ids (K_cap,) int64
+    and kvalid (K_cap,) bool, slots (per mip, (K_cap,) int64, SENTINEL
+    on invalid lanes) and meta, int32 [C_1..C_m, K, flag, padM per mip]
+    on the device: the true counts, flag 1 where a count passed its
+    capacity (the lanes past it are dropped).  Nothing is read on the
+    host."""
+    device = uv_flat.device
+    T = uv_flat.shape[0]
+    M = get_num_micro_triangles(subdiv)
+    m = len(levels) - 1
+    N0 = 4 ** levels[0]
+    span0 = M // N0
+    skip = _skip_final_p(levels, all_active)
+
+    node = torch.arange(T * N0, dtype=torch.int64, device=device)
+    side0 = sides_for(node & (N0 - 1), node >> (2 * levels[0]), levels[0],
+                      uv_flat, cls_levels[0], mips, pads, periods)
+    sides = [side0]
+    if all_active:
+        unres = side0 == 0
+    else:
+        gactive = active.reshape(T, N0, span0).any(dim=2).reshape(-1)
+        unres = (side0 == 0) & gactive
+
+    flag = torch.zeros((), dtype=torch.int64, device=device)
+    metas, nodes = [], []
+    for i in range(1, m + 1):
+        li = levels[i]
+        E = 4 ** (li - levels[i - 1])
+        cap = caps[i - 1]
+        par, Ci = compact_scan(unres, node, cap)
+        pvalid = torch.arange(cap, device=device) < torch.clamp_max(Ci, cap)
+        flag = torch.maximum(flag, (Ci > cap).to(torch.int64))
+        metas.append(Ci)
+        jj = torch.arange(E, dtype=torch.int64, device=device)
+        node = (par[:, None] * E + jj[None, :]).reshape(-1)
+        valid = pvalid[:, None].expand(cap, E).reshape(-1)
+        if i == m and skip:
+            # step-1 tail: the expanded children (a prefix, since `par`
+            # is compacted) are the survivors, in scan order
+            K = torch.clamp_max(Ci, cap) * E
+            if cap * E >= K_cap:
+                ids = node[:K_cap]
+            else:
+                ids = torch.cat([node, torch.zeros(
+                    K_cap - cap * E, dtype=torch.int64, device=device)])
+            kvalid = (torch.arange(K_cap, device=device)
+                      < torch.clamp_max(K, K_cap))
+            flag = torch.maximum(flag, (Ci * E > K_cap).to(torch.int64))
+            break
+        side_i = sides_for(node & (4 ** li - 1), node >> (2 * li), li,
+                           uv_flat, cls_levels[i], mips, pads, periods)
+        sides.append(side_i)
+        nodes.append((node, valid))
+        if i < m:
+            unres = valid & (side_i == 0)
+        else:
+            surv = valid & (side_i == 0)
+            if not all_active:
+                surv = surv & active[node >> (2 * subdiv), node & (M - 1)]
+            ids, K = compact_scan(surv, node, K_cap)
+            kvalid = (torch.arange(K_cap, device=device)
+                      < torch.clamp_max(K, K_cap))
+            flag = torch.maximum(flag, (K > K_cap).to(torch.int64))
+
+    sv_t = ids // M
+    sv_m = ids % M
+    bu, bv, bd = bary_cols(sv_m, subdiv)
+    tri6 = tri6_of(uv_flat, sv_t)
+    ar = torch.arange(K_cap, dtype=torch.int64, device=device)
+    metas += [K, flag]
+    slots = []
+    for mi, (w, h) in enumerate(mips):
+        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
+        x0, y0 = wrap_origin(x0, y0, periods[mi])
+        tile = tile_of(x0.to(torch.int64), y0.to(torch.int64), pads[mi],
+                       ntxs[mi])
+        tile = torch.where(kvalid, tile, INVALID_TILE)
+        # stable tile sort (invalid lanes last); each group starts at a
+        # multiple of B
+        st, order = torch.sort(tile, stable=True)
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
+                              st[1:] != st[:-1]])
+        start_pos = torch.cummax(torch.where(is_start, ar, 0), 0).values
+        rank = ar - start_pos
+        start_prev = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                            device=device), start_pos[:-1]])
+        inc = torch.where(is_start & (ar > 0),
+                          ((ar - start_prev + B - 1) // B) * B, 0)
+        offsets = torch.cumsum(inc, 0)
+        valid_el = st != INVALID_TILE
+        slot_sorted = torch.where(valid_el, offsets + rank, SENTINEL)
+        slots.append(torch.empty_like(ar).scatter_(0, order, slot_sorted))
+        metas.append(torch.where(valid_el, offsets + ((rank + B) // B) * B,
+                                 0).max())
+    return {"sides": sides, "nodes": nodes, "ids": ids, "kvalid": kvalid,
+            "slots": slots, "meta": torch.stack(metas).to(torch.int32)}
+
+
+def stage_c_spec(planeP, uv_flat, ccw, ids, kvalid, slot, nblk, *, subdiv,
+                 w, h, pad, ntx, H, W, rcp, alpha_cutoff, period=None,
+                 exact=None):
+    """Exact-stage counts of one mip at `nblk` blocks: the slot stream
+    of the valid survivors whose slot fits (the rest go to a dump lane),
+    the exact stage (`exact_counts`) over every block, empty ones
+    included, and (above, below) int32 (K_cap,) gathered back into
+    survivor order, 0 on the lanes left out."""
+    padM = nblk * B
+    ok = kvalid & (slot < padM)
+    tgt = torch.where(ok, slot, padM)
+    ids_slot = torch.full((padM + 1,), -1, dtype=torch.int32,
+                          device=ids.device)
+    ids_slot = ids_slot.scatter_(0, tgt, ids.to(torch.int32))[:padM]
+    ids_slot = ids_slot.reshape(nblk, B)
+    block_tile = block_tiles(uv_flat, ids_slot, subdiv=subdiv, w=w, h=h,
+                             pad=pad, ntx=ntx, period=period)
+    above, below = exact_counts(
+        planeP, block_tile, ids_slot, uv_flat, ccw, subdiv=subdiv, pad=pad,
+        ntx=ntx, size=(w, h), period=period, H=H, W=W, rcp=rcp,
+        alpha_cutoff=alpha_cutoff, exact=exact)
+    safe = torch.clamp_max(tgt, padM - 1)
+    return (torch.where(ok, above.reshape(-1)[safe], 0),
+            torch.where(ok, below.reshape(-1)[safe], 0))
+
+
+def stage_d_spec(res, mip_counts, nblks, *, T, subdiv, levels, fmt,
+                 promotion, cutoff_gt, cutoff_le):
+    """The batch's payload, a uint8 tensor [meta int32s | (T, M/4)
+    packed rows in serialize's sequential 2-bit layout]: stage_d over
+    stage_ab_spec's lanes (`res`), each level's rows and the survivors'
+    states written through the valid lanes only.  The meta is
+    stage_ab_spec's with the flag also raised where a mip's padded slot
+    total passes its block capacity nblks[mip] * B."""
+    device = res["ids"].device
+    M = get_num_micro_triangles(subdiv)
+    N0 = 4 ** levels[0]
+    meta = res["meta"]
+    m = len(levels) - 1
+    flag = meta[m + 1]
+    for mi, nblk in enumerate(nblks):
+        flag = torch.maximum(flag, (meta[m + 2 + mi] > nblk * B).to(
+            torch.int32))
+    meta = torch.cat([meta[:m + 1], flag[None], meta[m + 2:]])
+
+    final = merge_counts(mip_counts, fmt, promotion, cutoff_gt, cutoff_le)
+    # the level-0 base, then each level's rows; an item's worth of dump
+    # rows past T*M takes the invalid lanes' writes
+    base = torch.empty(T * M + M, dtype=torch.uint8, device=device)
+    base[:T * M].view(T * N0, M // N0).copy_(
+        map_side(res["sides"][0], cutoff_gt, cutoff_le)[:, None].expand(
+            T * N0, M // N0))
+    for i in range(1, len(res["sides"])):
         span = M // (4 ** levels[i])
-        base.view(-1, span)[nodes[i - 1]] = map_side(sides[i])[:, None]
-    base[ids] = final.to(torch.uint8)
+        Nl = T * (4 ** levels[i])
+        node, valid = res["nodes"][i - 1]
+        rows = map_side(res["sides"][i], cutoff_gt, cutoff_le)
+        base[:(Nl + 1) * span].view(Nl + 1, span).index_put_(
+            (torch.where(valid, node, Nl),),
+            rows[:, None].expand(rows.shape[0], span))
+    base.index_put_((torch.where(res["kvalid"], res["ids"], T * M),),
+                    final.to(torch.uint8))
 
-    s = base.view(T, M // 4, 4)
-    return (s[..., 0] | (s[..., 1] << 2) | (s[..., 2] << 4)
-            | (s[..., 3] << 6))
+    s = base[:T * M].view(T, M // 4, 4)
+    packed = (s[..., 0] | (s[..., 1] << 2) | (s[..., 2] << 4)
+              | (s[..., 3] << 6))
+    return torch.cat([meta.view(torch.uint8), packed.reshape(-1)])
+
+
+def spec_chain(cls_levels, planes, uv_flat, ccw, active, *, subdiv, levels,
+               caps, K_cap, nblks, mips, pads, ntxs, periods, HWs, rcps,
+               all_active, alpha_cutoff, fmt, promotion, cutoff_gt,
+               cutoff_le, exact=None):
+    """A batch's whole capacity chain (`_spec_chain`): stage_ab_spec, a
+    stage_c_spec per mip, stage_d_spec; returns the payload.  It reads
+    no count on the host and makes no host-to-device copy, so on a card
+    it can be captured as one CUDA graph."""
+    T = uv_flat.shape[0]
+    res = stage_ab_spec(cls_levels, uv_flat, active, subdiv=subdiv,
+                        levels=levels, caps=caps, K_cap=K_cap, mips=mips,
+                        pads=pads, ntxs=ntxs, periods=periods,
+                        all_active=all_active)
+    mip_counts = []
+    for mi, (w, h) in enumerate(mips):
+        mip_counts.append(stage_c_spec(
+            planes[mi], uv_flat, ccw, res["ids"], res["kvalid"],
+            res["slots"][mi], nblks[mi], subdiv=subdiv, w=w, h=h,
+            pad=pads[mi], ntx=ntxs[mi], H=HWs[mi][0], W=HWs[mi][1],
+            rcp=rcps[mi], alpha_cutoff=alpha_cutoff, period=periods[mi],
+            exact=exact))
+    return stage_d_spec(res, mip_counts, nblks, T=T, subdiv=subdiv,
+                        levels=levels, fmt=fmt, promotion=promotion,
+                        cutoff_gt=cutoff_gt, cutoff_le=cutoff_le)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,11 @@ numpy oracle, the GPU baker's dispatch on the card (default engine
 and ComputeOnly) against the dispatch on the CPU, and the mesh bake
 (every card; two slots on one card) against the plain bake, with kernel
 launches from several threads all counted, and the library surface
-(`Baker`, the CLI's bake) on the card against the CPU.  The port's inputs are built through convert from the
-same numpy arrays as the JAX package's.
+(`Baker`, the CLI's bake) on the card against the CPU, and a batch's
+capacity chain as a CUDA graph (its replays against the eager chain on
+the CPU and the discovery path, also from several threads at once).
+The port's inputs are built through convert from the same numpy arrays
+as the JAX package's.
 
 Every test is marked `cuda` and skips without a card.  This file
 imports no jax, so it also runs where jax is not installed:
@@ -418,3 +421,90 @@ def test_surface_on_card_equals_cpu(cuda, tmp_path, capsys):
         outs.append((capsys.readouterr().out.replace(str(q), "OUT"),
                      q.read_bytes()))
     assert outs[0] == outs[1]
+
+
+def _spec_job(case, device, exact_engine=None, tris=None):
+    """A fresh-item batch of a CASES entry on `device`, on the case's
+    shared texture (whose caps cache and graphs carry over between
+    jobs)."""
+    mk_tex, cfg, mk_tris, subdiv = CASES[case]
+    tex = _SPEC_TEX.setdefault(case, mk_tex())
+    tris = mk_tris() if tris is None else tris
+    pre = batch.precompute(tex, tris, subdiv,
+                           host._group_level(tex, tris, subdiv))
+    job = batch._Batch(tex, cfg, [(t, None) for t in tris], subdiv,
+                       list(range(len(tris))), [None] * len(tris), True, pre,
+                       torch.device(device), exact_engine)
+    return job
+
+
+_SPEC_TEX: dict = {}
+
+
+def _rows(out):
+    return [o.packed for o in out]
+
+
+@pytest.mark.parametrize("exact_engine", [None, "torch"],
+                         ids=["kernel", "twin"])
+@pytest.mark.parametrize("case", ["clamp", "unorm8_2mip", "wrap"])
+def test_graph_replay_equals_eager_and_discovery(case, exact_engine, cuda):
+    """A batch's capacity chain as a CUDA graph: the first call (the
+    warm-up on a side stream, then the capture) and two replays give
+    the payload of the eager chain on the CPU, and rows equal to the
+    discovery path's; each replay counts the graph's exact launches
+    (one per mip with the kernel, none with the twin)."""
+    _SPEC_TEX.pop(case, None)
+    disc = _spec_job(case, cuda, exact_engine)
+    batch._run_batch(disc)
+    _, want, _ = batch._enqueue_spec(_spec_job(case, "cpu"))
+    ot.reset_launches()
+    jobs = [_spec_job(case, cuda, exact_engine) for _ in range(3)]
+    pending = [batch._enqueue_spec(j) for j in jobs]
+    counts = ot.launches()
+    pc = ot.pipeline_counts()
+    assert pc["graph_capture"] == 1
+    assert pc["graph_replay"] == 2
+    nmip = disc.texture.mip_count
+    assert counts["exact_classify"] == (3 * nmip if exact_engine is None
+                                        else 0)
+    for j, p in zip(jobs, pending):
+        p[2].synchronize()
+        assert torch.equal(p[1], want)
+        assert batch._drain_spec(j, p)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(_rows(j.out), _rows(disc.out)))
+
+
+def test_graph_replays_from_threads(cuda):
+    """Eight threads replay one texture's graphs at once (two batches of
+    other items, one graph each shape): each payload equals the eager
+    chain's on the CPU, and every replay's launches count."""
+    import concurrent.futures as cf
+
+    _SPEC_TEX.pop("clamp", None)
+    sets = [_tris(8, 7), _tris(8, 11)]
+    for s in sets:
+        batch._run_batch(_spec_job("clamp", cuda, tris=s))
+    want = [batch._enqueue_spec(_spec_job("clamp", "cpu", tris=s))[1]
+            for s in sets]
+    for s in sets:  # the captures
+        batch._enqueue_spec(_spec_job("clamp", cuda, tris=s))[2].synchronize()
+
+    def run(k):
+        ok = True
+        for r in range(6):
+            s = (k + r) % 2
+            _, buf, ev = batch._enqueue_spec(_spec_job("clamp", cuda,
+                                                       tris=sets[s]))
+            ev.synchronize()
+            ok &= torch.equal(buf, want[s])
+        return ok
+
+    ot.reset_launches()
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        assert all(pool.map(run, range(8)))
+    counts = ot.launches()
+    pc = ot.pipeline_counts()
+    assert pc["graph_replay"] == 48
+    assert counts["exact_classify"] == 48

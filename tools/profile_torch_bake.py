@@ -10,9 +10,12 @@ or "mixed" (its 312-triangle mesh over every linear route), or "scene"
 (the vegetation scene, every triangle at subdivision 9); or "gpu", the
 bench triangles through the GPU baker's dispatch chain on its RGBA
 texture (the DescPatch pass is the label omm.desc_patch).  2 warm-up
-bakes, then one bake under torch.profiler.  Prints the wall seconds of
-the profiled bake, host time per stage and route label (omm.*), the
-work items per route, the host operations with the most self CPU time,
+bakes (the first discovers the batches' capacities, the second
+captures their CUDA graphs), then one bake under torch.profiler.  Prints
+the wall seconds of the profiled bake, host time per stage and route
+label (omm.*), the work items per route, the pipeline's counts (batches
+per path, graph captures and replays, count syncs), the kernel and
+graph launch calls, the host operations with the most self CPU time,
 device time per kernel, and the device's busy and idle shares of the
 bake's wall time.  With --trace, the Chrome trace is written to PATH.
 
@@ -71,7 +74,15 @@ def main():
     print("items per route: " + ", ".join(
         f"{k[6:]} {v}" for k, v in ot.launches().items()
         if k.startswith("route.") and v))
+    print("pipeline: " + ", ".join(
+        f"{k} {v}" for k, v in ot.pipeline_counts().items()))
     ev = prof.key_averages()
+    calls = {e.key: e for e in ev}
+    print("launch calls: " + ", ".join(
+        f"{k} {calls[k].count} ({calls[k].cpu_time_total / 1e3:.3f} host ms)"
+        if k in calls else f"{k} 0"
+        for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                  "cudaGraphLaunch")))
     print("host time per stage label (ms, inclusive):")
     for e in sorted(ev, key=lambda e: -e.cpu_time_total):
         if e.key.startswith("omm."):
