@@ -152,8 +152,23 @@ and prints no result line):
              (tools/profile_torch_bake.py --workload bench: kernel and
              graph launch calls, omm.* labels, device idle share); and
              torch.cuda.memory_reserved() after phases 13 and 14
+ 15. post    (runs before phase 9, after 14) the fused post pass on a
+             fresh bench texture: after 2 warm-up bakes (discovery,
+             capture), bake.classify_items with its counts set to 0 just
+             before and read just after: every batch on the capacity
+             chain, and every one of the 256 fast-path items must carry
+             a post, (states3 digest, uniform value), equal to
+             native.states3_digest and native.all_uniform_u8 of its
+             unpacked row; finalize_items over those items byte-equal to
+             the discovery bake; 16 triangles classified with their
+             posts on the card and on the CPU, finalized byte-equal to
+             each other and to ot.bake on the CPU; then one bake under
+             torch.profiler (host labels): omm.classify, omm.row_post,
+             omm.finalize and its stages (omm.promote, omm.dedup_exact,
+             omm.dedup_near, omm.compress, omm.histograms, omm.sort,
+             omm.serialize), byte-equal to the discovery bake
 
-Every timed bake of phases 4-13 comes after 2 warm-ups, the first of
+Every timed bake of phases 4-15 comes after 2 warm-ups, the first of
 which discovers the capacities and the second captures the graphs; every
 two-phase batch of the timed bakes must start on the capacity chain
 (overflows and reruns are counted and printed), and the timed bakes must
@@ -166,7 +181,8 @@ each path: surface.baker, surface.capi and surface.tools for phase 12
 (a) and (c), scene.level7 and scene.level9 for (b), spots.<name> for
 each bake of phase 13 (around its 5 timed bakes), spec.<path> for phase
 14 (spec and discovery: 5 bakes each; overflow: the flagged bake and
-the one after it; gpu: one default-engine dispatch).
+the one after it; gpu: one default-engine dispatch), post.classify for
+phase 15's classify_items.
 jax and the JAX package omm_tpu are blocked from import for the whole
 run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
@@ -1576,6 +1592,109 @@ def spec_phase(card):
     return launches, sums
 
 
+#: phase 15's labels: the bake's stages, the batch pipeline's post pass,
+#: and finalize_items' stages in the order they run
+POST_LABELS = ("omm.classify", "omm.row_post", "omm.finalize",
+               "omm.promote", "omm.dedup_exact", "omm.dedup_near",
+               "omm.compress", "omm.histograms", "omm.sort",
+               "omm.serialize")
+
+
+def _classify_with_posts(desc, device):
+    """setup_work_items and classify_items of desc on `device`, its
+    counts set to 0 just before classify_items and read just after:
+    (opts, items, counts, seconds).  Fails unless every fast-path item
+    carries a post equal to the recompute on its unpacked row."""
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import native
+    from omm_tpu_torch.bake import Options, classify_items, setup_work_items
+    from omm_tpu_torch.planes import check_device
+    opts = Options.from_flags(desc.bake_flags)
+    items = setup_work_items(desc, opts)
+    ot.reset_launches()
+    t0 = time.perf_counter()
+    classify_items(desc, opts, items, check_device(device))
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    fast = counts["route.fast_path"]
+    posted = [it for it in items if it.post is not None]
+    if fast != len(items) or len(posted) != fast:
+        raise SystemExit(f"{len(posted)} of {len(items)} items ({fast} on "
+                         "the fast path) carry a post")
+    for k, it in enumerate(items):
+        st = it.states
+        want = (native.states3_digest(st), native.all_uniform_u8(st))
+        if it.post != want:
+            raise SystemExit(f"item {k}: post {it.post}, recomputed {want}")
+    return opts, items, counts, secs
+
+
+def post_phase(card):
+    """Phase 15: the fused post pass on the card.  Returns (exact
+    launches of classify_items, summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from omm_tpu_torch.bake import finalize_items, split_tail_light
+    nb = len(split_tail_light(list(range(N_TRIS)), [BATCH]))
+    tex, uv_tris = _workload()
+    desc = _desc(tex, uv_tris)
+    first = _bake(desc)  # the discovery path
+    _bake(desc)  # captures the graphs
+    torch.cuda.synchronize()
+    opts, items, c, t_cls = _classify_with_posts(desc, "cuda")
+    _need(c, "post classify", spec=nb, discovery=0, spec_overflow=0,
+          graph_replay=nb, exact=nb)
+    uniform = sum(1 for it in items if it.post[1] >= 0)
+    t0 = time.perf_counter()
+    res = finalize_items(desc, opts, items)
+    t_fin = time.perf_counter() - t0
+    if not _results_equal(res, first):
+        raise SystemExit("post: the bake of items with posts differs from "
+                         "the discovery bake")
+    print(f"post: {len(items)} of {N_TRIS} bench items carry a post equal "
+          f"to the recompute ({uniform} uniform); classify_items "
+          f"{t_cls:.4f} s ({nb} batches on the chain, {c['exact_classify']}"
+          f" exact launches), finalize_items {t_fin:.4f} s, byte-equal to "
+          f"the discovery bake ({card})", flush=True)
+
+    # 16 triangles with their posts, on the card and on the CPU
+    d16 = [_desc(_workload()[0], uv_tris[:16]) for _ in range(2)]
+    r16 = [finalize_items(d, o, its) for d, (o, its, _, _) in zip(
+        d16, (_classify_with_posts(d16[0], "cuda"),
+              _classify_with_posts(d16[1], "cpu")))]
+    r_cpu = _bake(_desc(_workload()[0], uv_tris[:16]), "cpu")
+    if not (_results_equal(r16[0], r16[1])
+            and _results_equal(r16[0], r_cpu)):
+        raise SystemExit("post: 16 triangles with posts, the card's bake "
+                         "differs from the CPU's")
+    print("post: 16 triangles classified with their posts on the card and "
+          "on the CPU, byte-equal to each other and to ot.bake on the CPU",
+          flush=True)
+
+    # one profiled bake: omm.finalize split into its stages
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        res = _bake(desc)
+        wall = time.perf_counter() - t0
+    if not _results_equal(res, first):
+        raise SystemExit("post: the profiled bake differs from the "
+                         "discovery bake")
+    ev = {e.key: e for e in prof.key_averages()}
+    labels = {k: (ev[k].cpu_time_total / 1e3, ev[k].count)
+              for k in POST_LABELS if k in ev}
+    missing = [k for k in POST_LABELS if k not in labels]
+    if missing:
+        raise SystemExit(f"post: the profile has no {missing}")
+    print(f"post: profiled bench bake {wall * 1e3:.3f} ms wall (host "
+          f"labels, profiler on; {card}):")
+    for k, (ms, n) in labels.items():
+        print(f"  {k:18s} {ms:10.3f} ms x{n}")
+    return c["exact_classify"], {
+        "classify_s": t_cls, "finalize_s": t_fin, "uniform": uniform,
+        "items_with_post": len(items), "profiled_wall_ms": wall * 1e3,
+        "labels_ms": {k: v[0] for k, v in labels.items()}}
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1736,6 +1855,9 @@ def main():
 
     # ---- 14. spec (before 9) ----
     spec_launches, spec_sums = spec_phase(card)
+
+    # ---- 15. post (before 9) ----
+    post_launches, post_sum = post_phase(card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -1758,7 +1880,8 @@ def main():
                "scene.level7": scene_launches[7],
                "scene.level9": scene_launches[9],
                **{f"spots.{k}": v for k, v in spot_launches.items()},
-               **{f"spec.{k}": v for k, v in spec_launches.items()}}
+               **{f"spec.{k}": v for k, v in spec_launches.items()},
+               "post.classify": post_launches}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
                                 "gpu_compute_only": co_sum,
@@ -1768,7 +1891,7 @@ def main():
                                 "surface": {**surface_sums,
                                             "tools_launches": tools_launches},
                                 "scene": scene_sums, "spots": spot_sums,
-                                "spec": spec_sums},
+                                "spec": spec_sums, "post": post_sum},
                       "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",

@@ -77,10 +77,10 @@ class WorkItem:
     states: np.ndarray = None       # (4^N,) uint8; init UnknownOpaque
     special_index: int = NO_SPECIAL_INDEX
     desc_offset: int = 0xFFFFFFFF
-    #: cached (states3 digest, uniform value) from the classify engine's
-    #: fused post pass (native.row_post); auto-cleared whenever `states`
-    #: is reassigned (merges/downsampling build NEW arrays, so attribute
-    #: assignment is the invalidation point)
+    #: cached (states3 digest, uniform value) from the batch pipeline's
+    #: fused post pass (native.row_post_packed); auto-cleared whenever
+    #: `states` is reassigned (merges/downsampling build NEW arrays, so
+    #: attribute assignment is the invalidation point)
     post: tuple | None = None
 
     def __setattr__(self, name, value):
@@ -461,13 +461,8 @@ def promote_special_indices(desc: BakeInputDesc, opts: Options,
         # results never materialize their (4^N,) arrays on this pass
         u = it.post[1] if it.post is not None \
             else native.all_uniform_u8(it.states)
-        if u is not None:
-            all_equal = u >= 0
-            common = int(u) if all_equal else UO
-        else:
-            st = it.states
-            all_equal = bool((st == st[0]).all())
-            common = int(st[0])
+        all_equal = u >= 0
+        common = int(u) if all_equal else UO
         if not all_equal and desc.rejection_threshold > 0.0:
             st = it.states
             known = int(np.count_nonzero((st == 0) | (st == 1)))
@@ -497,7 +492,7 @@ def deduplicate_exact(opts: Options, items: list[WorkItem]):
 
     ncpu = os.cpu_count() or 1
     todo = sum(1 for it in items if it.post is None)
-    if todo > 8 and ncpu > 1 and native.get_lib() is not None:
+    if todo > 8 and ncpu > 1:
         # the native digest releases the GIL: hash items in parallel
         # (single-core hosts skip the pool — it is pure overhead there)
         import concurrent.futures as cf
@@ -508,8 +503,6 @@ def deduplicate_exact(opts: Options, items: list[WorkItem]):
     digest_to_idx: dict = {}
     for i, it in enumerate(items):
         digest = digests[i]
-        if digest is None:  # no native lib: key on the exact bytes
-            digest = it.states3().tobytes()
         j = digest_to_idx.get(digest)
         if j is None:
             digest_to_idx[digest] = i
@@ -944,25 +937,35 @@ def finalize_items(desc: BakeInputDesc, opts: Options,
     couple across ALL work items (dedup maps, the compress budget sort),
     so the exact bake farm replays this tail once over the gathered
     global item list (parallel/multihost.merge_exact)."""
-    promote_special_indices(desc, opts, items)
-    deduplicate_exact(opts, items)
-    changed = deduplicate_similar_lsh(desc, opts, items, iterations=3)
-    changed |= deduplicate_similar_brute_force(opts, items)
-    promote_special_indices(desc, opts, items)
-    changed |= compress(desc, opts, items)
+    # record_function labels split omm.finalize in torch.profiler traces
+    with record_function("omm.promote"):
+        promote_special_indices(desc, opts, items)
+    with record_function("omm.dedup_exact"):
+        deduplicate_exact(opts, items)
+    with record_function("omm.dedup_near"):
+        changed = deduplicate_similar_lsh(desc, opts, items, iterations=3)
+        changed |= deduplicate_similar_brute_force(opts, items)
+    with record_function("omm.promote"):
+        promote_special_indices(desc, opts, items)
+    with record_function("omm.compress"):
+        changed |= compress(desc, opts, items)
     if changed:
         # only near-duplicate merges or downsampling can mint new exact
         # duplicates / uniform items; when none ran, the second dedup +
         # promotion passes are identities (the reference runs them
         # unconditionally, but they observably do nothing then)
-        deduplicate_exact(opts, items)
-        promote_special_indices(desc, opts, items)
+        with record_function("omm.dedup_exact"):
+            deduplicate_exact(opts, items)
+        with record_function("omm.promote"):
+            promote_special_indices(desc, opts, items)
 
-    arr_hist, idx_hist = create_usage_histograms(items)
-    order = micromap_spatial_sort(items)
-    res = serialize_result(desc, items, arr_hist, idx_hist, order,
-                           allocator=allocator)
-    return res
+    with record_function("omm.histograms"):
+        arr_hist, idx_hist = create_usage_histograms(items)
+    with record_function("omm.sort"):
+        order = micromap_spatial_sort(items)
+    with record_function("omm.serialize"):
+        return serialize_result(desc, items, arr_hist, idx_hist, order,
+                                allocator=allocator)
 
 
 # ---------------------------------------------------------------------------
@@ -1050,11 +1053,12 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
         batches = [[(items[i].uv_tri,
                      None if getattr(items[i], "_fresh", False)
                      else items[i].states) for i in c] for c in chunks]
+        posts: list = []
         outs = classify_work_items_batches(tex, cfg, batches, levels,
-                                           device=device)
-        for c, res in zip(chunks, outs):
-            for i, st in zip(c, res):
-                set_states(items[i], st)
+                                           device=device, post_out=posts)
+        for c, res, pd in zip(chunks, outs, posts):
+            for bi, (i, st) in enumerate(zip(c, res)):
+                set_states(items[i], st, pd.get(bi))
     elif nearest:
         for level, idxs in _by_level(items, sel & ~degen).items():
             res = classify.classify_nearest_survivors_batch(
@@ -1100,14 +1104,19 @@ def _classify_on_mesh(tex, cfg, items, cand, mesh) -> np.ndarray:
     return done
 
 
-def set_states(it, st):
+def set_states(it, st, post=None):
     """Install a classification result on a work item: a PackedStates as
     its packed rows, an array as its states (unless it is the item's
-    own: an identity keeps the item's caches)."""
+    own: an identity keeps the item's caches); then `post`, the batch
+    pipeline's (states3 digest, uniform value) of the result, where
+    there is one."""
     if isinstance(st, PackedStates):
-        it.set_packed_states(st)
-    elif st is not it.states:
+        it.set_packed_states(st, post)
+        return
+    if st is not it.states:
         it.states = st
+    if post is not None:
+        it.post = post
 
 
 def _by_level(items, sel) -> dict:

@@ -127,9 +127,10 @@ class _Batch:
     its chain reads (host tables and the cached planes)."""
 
     def __init__(self, texture, cfg, items, subdiv, fast, out, all_active,
-                 precomp, device, exact):
+                 precomp, device, exact, post=None):
         self.texture, self.cfg, self.items = texture, cfg, items
         self.subdiv, self.fast, self.out = subdiv, fast, out
+        self.post = post  # the dict write_back fills, or None
         self.all_active, self.device, self.exact = all_active, device, exact
         self.T = len(fast)
         self.M = get_num_micro_triangles(subdiv)
@@ -157,7 +158,21 @@ class _Batch:
     def write_back(self, packed):
         """Put the batch's (T, M/4) packed rows into its items' results:
         PackedStates when all its items are fully active, else states
-        with only the active micro-triangles replaced."""
+        with only the active micro-triangles replaced.  Where posts are
+        wanted, the fused post pass (`native.row_post_packed`) runs over
+        the rows while they are cache-warm: every row of an all-active
+        batch, else the rows of fresh items (a row merged into prior
+        states changes bytes, so it gets none)."""
+        if self.post is not None:
+            rows = [t for t, i in enumerate(self.fast)
+                    if self.all_active or self.items[i][1] is None]
+            if rows:
+                with record_function("omm.row_post"):
+                    dig, uni = native.row_post_packed(
+                        packed, self.M,
+                        row_base=np.asarray(rows, np.int64) * (self.M // 4))
+                for k, t in enumerate(rows):
+                    self.post[self.fast[t]] = (int(dig[k]), int(uni[k]))
         for t, i in enumerate(self.fast):
             if self.all_active:
                 self.out[i] = PackedStates(packed[t], self.M)
@@ -266,7 +281,8 @@ def _drain_spec(job, pending) -> bool:
 
 
 def classify_work_items_batches(texture, cfg, batches, subdiv, *,
-                                device="cuda", exact=None):
+                                device="cuda", exact=None,
+                                post_out: list | None = None):
     """Classify several batches of work items on `device`.
 
     batches: lists of (uv_tri (3, 2) fp32, states (M,) uint8 or None);
@@ -286,7 +302,15 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     path go through `engine.resample_fine_item`.  A batch whose cap key
     is in the texture's caps cache runs its chain at the cached
     capacities; the others, and those that overflow them, run the
-    discovery path, which records their entries (module docstring)."""
+    discovery path, which records their entries (module docstring).
+
+    post_out: an optional list; receives one dict per batch mapping item
+    index -> (states3 digest, uniform value) of the fast-path rows that
+    come back whole (every row of an all-active batch, the fresh items'
+    rows of a partial one), from the fused post pass that runs as each
+    batch's rows reach the host, on either path.  The bake's promotion
+    and exact dedup read these instead of unpacking each row.  Without
+    it no post pass runs."""
     device = check_device(device)
     subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
                else [int(s) for s in subdiv])
@@ -341,14 +365,16 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     # every cached batch's chain is enqueued before any is drained; the
     # rest, and every batch whose meta flags an overflow, take the
     # discovery path after the drain, in batch order
+    posts = [{} for _ in batches]
     jobs = []
-    for (items, out, todo, mins), fast, sd in zip(routed, fast_lists,
-                                                  subdivs):
+    for (items, out, todo, mins), fast, sd, post in zip(
+            routed, fast_lists, subdivs, posts):
         if fast:
             routes.count("fast_path", len(fast))
             job = _Batch(texture, cfg, items, sd, fast, out,
                          all(mins[i] == UO for i in fast), precomps[sd],
-                         device, exact)
+                         device, exact,
+                         post=post if post_out is not None else None)
             jobs.append((job, _enqueue_spec(job)))
     for job, pending in jobs:
         if pending is None or not _drain_spec(job, pending):
@@ -359,4 +385,6 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
             st = np.full(get_num_micro_triangles(sd), UO, np.uint8)
         out[i] = engine.resample_fine_item(texture, cfg, items[i][0], sd, st,
                                            device)
+    if post_out is not None:
+        post_out.extend(posts)
     return results

@@ -9,8 +9,9 @@ concurrent processes never load a half-written library, and hosts
 sharing a build directory never load another's.  The build is required:
 where the original fell back to numpy when g++ was missing, the port
 raises.
-The descent replays (`reconstruct_states`, `reconstruct_packed`,
-`row_post*`) are not bound: the port packs states on the device.
+The descent replays (`reconstruct_states`, `reconstruct_packed`) and
+the unpacked rows' `row_post` are not bound: the port packs states on
+the device, and `row_post_packed` takes the post of its packed rows.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ import numpy as np
 from .kernels import build
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _FNS = {
     "omm_xxh64": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64],
                   ctypes.c_uint64),
@@ -36,11 +40,10 @@ _FNS = {
     "omm_states3_xxh64": ([_U8P, ctypes.c_size_t, ctypes.c_uint64],
                           ctypes.c_uint64),
     "omm_all_uniform_u8": ([_U8P, ctypes.c_size_t], ctypes.c_int),
-    "omm_pack_states_batch": ([ctypes.POINTER(ctypes.c_uint64),
-                               ctypes.POINTER(ctypes.c_int64),
-                               ctypes.POINTER(ctypes.c_int32),
-                               ctypes.POINTER(ctypes.c_int64),
+    "omm_pack_states_batch": ([_U64P, _I64P, _I32P, _I64P,
                                ctypes.c_int64, _U8P], None),
+    "omm_row_post_packed": ([_U8P, ctypes.c_int64, ctypes.c_int64, _U64P,
+                             _I32P, _I64P], None),
     "omm_unpack_2bit_seq": ([_U8P, ctypes.c_size_t, _U8P], None),
 }
 
@@ -98,11 +101,8 @@ def pack_states_batch(state_arrs, bits_list, offs, out) -> bool:
     bt = np.asarray(bits_list, np.int32)
     of = np.asarray(offs, np.int64)
     get_lib().omm_pack_states_batch(
-        ptrs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        ms.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        bt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        of.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        n, _u8ptr(out))
+        ptrs.ctypes.data_as(_U64P), ms.ctypes.data_as(_I64P),
+        bt.ctypes.data_as(_I32P), of.ctypes.data_as(_I64P), n, _u8ptr(out))
     return True
 
 
@@ -125,6 +125,38 @@ def hamming_u8(a, b) -> int:
     aa = np.ascontiguousarray(a, dtype=np.uint8)
     bb = np.ascontiguousarray(b, dtype=np.uint8)
     return int(get_lib().omm_hamming_u8(_u8ptr(aa), _u8ptr(bb), len(aa)))
+
+
+def row_post_packed(packed, M: int, row_base=None):
+    """The fused post pass over PACKED rows: a (rows, M/4) block of
+    sequential 2-bit rows -> per row (3-state digest, uniform value),
+    equal to (states3_digest, all_uniform_u8) of the unpacked row.
+    row_base: rows scattered in `packed`, row r at byte row_base[r].
+    Raises ValueError unless M is a power of 4 of at least 4: the C pass
+    compares whole bytes with the uniform pattern, which a 1-state row
+    does not fill, and takes the digest's tail in 4-byte words."""
+    M = int(M)
+    if M < 4 or M & (M - 1) or M.bit_length() % 2 == 0:
+        raise ValueError(f"row_post_packed needs M a power of 4, >= 4 "
+                         f"(got {M})")
+    Q = M >> 2
+    b = np.ascontiguousarray(packed, dtype=np.uint8)
+    if row_base is None:
+        if b.ndim != 2 or b.shape[1] != Q:
+            raise ValueError(f"packed rows of shape {b.shape}, want "
+                             f"(rows, {Q})")
+        rows, rbp = b.shape[0], None
+    else:
+        rb = np.ascontiguousarray(row_base, np.int64)
+        if rb.size and (rb.min() < 0 or rb.max() + Q > b.size):
+            raise ValueError("a row_base row lies outside `packed`")
+        rows, rbp = rb.shape[0], rb.ctypes.data_as(_I64P)
+    dig = np.empty(rows, np.uint64)
+    uni = np.empty(rows, np.int32)
+    get_lib().omm_row_post_packed(_u8ptr(b), rows, M,
+                                  dig.ctypes.data_as(_U64P),
+                                  uni.ctypes.data_as(_I32P), rbp)
+    return dig, uni
 
 
 def unpack_2bit_seq(packed, M: int):
