@@ -167,8 +167,33 @@ and prints no result line):
              omm.finalize and its stages (omm.promote, omm.dedup_exact,
              omm.dedup_near, omm.compress, omm.histograms, omm.sort,
              omm.serialize), byte-equal to the discovery bake
+ 16. drain   (runs before phase 9, after 15) the concurrent drain of the
+             batch pipeline on a fresh bench texture, after 2 warm-ups:
+             (a) 5 bakes, each with its counts set to 0 just before
+             it, whose chains must all be issued from one enqueue thread
+             and whose post passes must run on pool threads, never the
+             calling thread, on 2 or more threads in at least one bake
+             (the post threads and the most post passes at once of each
+             bake are printed), each byte-equal to the discovery bake
+             with 6 spec batches, 6 graph replays, 6 count syncs and 6
+             exact launches; (b) the first 16
+             triangles in 4 batches of 4 through classify_work_items_
+             batches with posts, the card's discovery, capturing and
+             drained calls equal, rows and posts, to the CPU's; (c) the
+             bench bake and the GPU baker's dispatch, 5 each on the
+             drained chain in turns with 5 on the discovery path (a
+             second texture of the same data, its caps emptied before
+             each; the GPU baker's second call per dispatch finds the
+             first's entries), byte-equal to the discovery bake, best
+             and median; (d) whether CUDAGraph.replay() lets another
+             thread run Python (a Python loop's rate beside a thread
+             that replays a bench graph); (e) one bench bake profiled
+             on every thread (profile_all_threads): omm.classify and
+             omm.drain (the calling thread), omm.spec (on one thread),
+             omm.row_post with the threads it ran on, device busy and
+             idle share
 
-Every timed bake of phases 4-15 comes after 2 warm-ups, the first of
+Every timed bake of phases 4-16 comes after 2 warm-ups, the first of
 which discovers the capacities and the second captures the graphs; every
 two-phase batch of the timed bakes must start on the capacity chain
 (overflows and reruns are counted and printed), and the timed bakes must
@@ -182,7 +207,9 @@ each path: surface.baker, surface.capi and surface.tools for phase 12
 each bake of phase 13 (around its 5 timed bakes), spec.<path> for phase
 14 (spec and discovery: 5 bakes each; overflow: the flagged bake and
 the one after it; gpu: one default-engine dispatch), post.classify for
-phase 15's classify_items.
+phase 15's classify_items, drain.<path> for phase 16 (threads: the 5
+bakes of (a); batches16: the drained call of (b); bench, bench_discovery, gpu,
+gpu_discovery: the 5 bakes of each path in (c)).
 jax and the JAX package omm_tpu are blocked from import for the whole
 run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
@@ -746,7 +773,8 @@ def _in_turns(paths, rounds=5, warm=2):
     """Call each of `paths` ({name: fn returning a BakeResult}) `warm`
     times, then `rounds` rounds in turns, each call with the counts set
     to 0 just before it and read just after: ({name: results}, {name:
-    times}, {name: each count summed over the rounds})."""
+    times}, {name: each count of `_counts` summed over the
+    rounds})."""
     import omm_tpu_torch as ot
     for _ in range(warm):
         for fn in paths.values():
@@ -761,7 +789,7 @@ def _in_turns(paths, rounds=5, warm=2):
             t0 = time.perf_counter()
             results[name].append(fn())
             times[name].append(time.perf_counter() - t0)
-            for k, v in ot.launches().items():
+            for k, v in _counts().items():
                 counts[name][k] = counts[name].get(k, 0) + v
     return results, times, counts
 
@@ -1584,7 +1612,8 @@ def spec_phase(card):
         raise SystemExit(f"profile_torch_bake.py failed: {prof.stderr}")
     sums["profile"] = [ln for ln in prof.stdout.splitlines()
                        if ln.startswith(("profiled", "pipeline", "launch",
-                                         "device busy", "exact kernel"))]
+                                         "device busy", "exact kernel",
+                                         "omm.drain"))]
     print(f"memory_reserved after phase 14: "
           f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB "
           f"(allocated {torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB) "
@@ -1672,7 +1701,8 @@ def post_phase(card):
           flush=True)
 
     # one profiled bake: omm.finalize split into its stages
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=all_threads()) as prof:
         t0 = time.perf_counter()
         res = _bake(desc)
         wall = time.perf_counter() - t0
@@ -1693,6 +1723,294 @@ def post_phase(card):
         "classify_s": t_cls, "finalize_s": t_fin, "uniform": uniform,
         "items_with_post": len(items), "profiled_wall_ms": wall * 1e3,
         "labels_ms": {k: v[0] for k, v in labels.items()}}
+
+
+def all_threads():
+    """torch.profiler's experimental config that records the labels of
+    every thread: a bake's chains are issued by the batch pipeline's
+    enqueue thread (omm.spec) and its rows written back by a pool
+    (omm.row_post), not by the calling thread."""
+    return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+
+
+def profile_labels(prof):
+    """({omm.* label: (host ms inclusive, calls, threads)}, device busy
+    ms) of a torch.profiler profile: the labels' host spans (not their
+    device-side spans), and the self device time of every device op."""
+    from torch.autograd import DeviceType
+    threads = {}
+    for e in prof.events():
+        if e.name.startswith("omm.") and e.device_type == DeviceType.CPU:
+            threads.setdefault(e.name, set()).add(e.thread)
+    labels, dev_us = {}, 0.0
+    for e in prof.key_averages():
+        if e.key.startswith("omm."):
+            if e.device_type == DeviceType.CPU:
+                labels[e.key] = (e.cpu_time_total / 1e3, e.count,
+                                 len(threads.get(e.key, ())))
+        elif e.device_type == DeviceType.CUDA:
+            dev_us += e.self_device_time_total
+    return labels, dev_us / 1e3
+
+
+#: phase 16's labels: the calling thread's bake, its waits, the enqueue
+#: thread's chains and the pool's post passes
+DRAIN_LABELS = ("omm.classify", "omm.drain", "omm.spec", "omm.row_post")
+
+
+def _gil_probe(tex, card):
+    """Whether CUDAGraph.replay() lets other threads run Python: a pure
+    Python loop counts for 0.3 s alone, then for 0.3 s while another
+    thread replays one of tex's captured graphs (a sync after every 6
+    replays, as a bake's drain has).  Returns (loop ratio, share of the
+    window the replaying thread spent inside replay())."""
+    import threading
+
+    from omm_tpu_torch import planes
+    st = next(c["graphs"] for c in getattr(tex, planes._CACHE_ATTR).values()
+              if "graphs" in c)
+    entry = next(iter(st.graphs.values()))
+
+    def spin(sec):
+        n, end = 0, time.perf_counter() + sec
+        while time.perf_counter() < end:
+            n += 1
+        return n
+
+    stop = threading.Event()
+    inside = [0.0, 0]
+
+    def replay():
+        while not stop.is_set():
+            with st.lock:
+                t0 = time.perf_counter()
+                entry.graph.replay()
+                inside[0] += time.perf_counter() - t0
+            inside[1] += 1
+            if inside[1] % 6 == 0:
+                torch.cuda.synchronize()
+
+    alone = spin(0.3)
+    th = threading.Thread(target=replay)
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        shared = spin(0.3)
+        window = time.perf_counter() - t0
+    finally:
+        stop.set()
+        th.join()
+    torch.cuda.synchronize()
+    ratio, share = shared / alone, inside[0] / window
+    print(f"drain (d): a Python loop ran {ratio:.3f} of its lone rate while "
+          f"another thread replayed a bench graph {inside[1]} times, "
+          f"{share:.3f} of the window inside replay() "
+          f"({inside[0] / max(inside[1], 1) * 1e3:.3f} ms per call); "
+          f"{'replay releases' if ratio > 1 - share / 2 else 'replay holds'}"
+          f" the interpreter lock ({card})", flush=True)
+    return ratio, share
+
+
+def drain_phase(card):
+    """Phase 16: the concurrent drain on the card.  Returns ({path: exact
+    launches}, {path: summary})."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import omm_tpu_torch as ot
+    from omm_tpu_torch import batch as tbatch
+    from omm_tpu_torch import native
+    from omm_tpu_torch.bake import (Options, _config, setup_work_items,
+                                    split_tail_light)
+    nb = len(split_tail_light(list(range(N_TRIS)), [BATCH]))
+    utri = N_TRIS * 4 ** SUBDIV
+    tex, uv_tris = _workload()
+    desc = _desc(tex, uv_tris)
+    first = _bake(desc)  # the discovery path
+    _bake(desc)  # captures the graphs
+    torch.cuda.synchronize()
+    launches, sums = {}, {}
+
+    # (a) the threads of 5 drained bakes: a pool thread takes a batch
+    # only while the threads before it are busy, so each bake counts its
+    # post threads and the most post passes that ran at once
+    seen = {"post": set(), "enqueue": set(), "running": 0, "most": 0}
+    lock = threading.Lock()
+    post_fn, run_fn = native.row_post_packed, tbatch._enqueue_spec
+
+    def post(*a, **k):
+        with lock:
+            seen["post"].add(threading.get_ident())
+            seen["running"] += 1
+            seen["most"] = max(seen["most"], seen["running"])
+        try:
+            return post_fn(*a, **k)
+        finally:
+            with lock:
+                seen["running"] -= 1
+
+    def run(*a, **k):
+        with lock:
+            seen["enqueue"].add(threading.get_ident())
+        return run_fn(*a, **k)
+
+    me = threading.get_ident()
+    per_bake, exact_a = [], 0
+    native.row_post_packed, tbatch._enqueue_spec = post, run
+    try:
+        for _ in range(5):
+            seen.update(post=set(), enqueue=set(), most=0)
+            res, t_a, c = _bake_counted(desc)
+            _need(c, "drained bench bake", spec=nb, discovery=0,
+                  spec_overflow=0, graph_capture=0, graph_replay=nb,
+                  count_sync=nb, exact=nb)
+            if me in seen["post"]:
+                raise SystemExit("drain: a post pass ran on the calling "
+                                 "thread")
+            if len(seen["enqueue"]) != 1 or me in seen["enqueue"]:
+                raise SystemExit("drain: chains issued from "
+                                 f"{len(seen['enqueue'])} threads (want one "
+                                 "enqueue thread)")
+            if not _results_equal(res, first):
+                raise SystemExit("drain: a drained bake differs from the "
+                                 "discovery bake")
+            per_bake.append((t_a, len(seen["post"]), seen["most"]))
+            exact_a += c["exact_classify"]
+    finally:
+        native.row_post_packed, tbatch._enqueue_spec = post_fn, run_fn
+    if max(n for _, n, _ in per_bake) < 2:
+        raise SystemExit("drain: every bake ran its post passes on one "
+                         "thread")
+    print(f"drain (a): 5 bench bakes, {nb} batches each issued from one "
+          "enqueue thread, byte-equal to the discovery bake; per bake "
+          "(seconds, post threads, most post passes at once): "
+          f"{json.dumps(per_bake)}; last {json.dumps(_pipe(c))} ({card})",
+          flush=True)
+    launches["threads"] = exact_a
+    sums["threads"] = per_bake
+
+    # (b) 16 triangles in 4 batches of 4, with posts: the card's
+    # discovery, capture and drained calls equal to the CPU's
+    opts = Options.from_flags(desc.bake_flags)
+    cfg = _config(desc, opts)
+    uvs = [it.uv_tri for it in setup_work_items(desc, opts)][:16]
+
+    def call16(t, device):
+        posts = []
+        outs = tbatch.classify_work_items_batches(
+            t, cfg, [[(u, None) for u in uvs[k:k + 4]]
+                     for k in range(0, 16, 4)], SUBDIV, device=device,
+            post_out=posts)
+        return [[r.packed.copy() for r in o] for o in outs], posts
+
+    t16, tc = _workload()[0], _workload()[0]
+    card16 = [call16(t16, "cuda") for _ in range(2)]
+    ot.reset_launches()
+    card16.append(call16(t16, "cuda"))
+    c16 = _counts()
+    # every batch starts on the chain; one that overflows the entry the
+    # last discovered batch of its shape recorded reruns (and the next
+    # call captures anew), as in the JAX package
+    _need(c16, "16 triangles drained", spec=4,
+          discovery=c16["pipeline.spec_overflow"])
+    cpu16 = [call16(tc, "cpu") for _ in range(2)]
+
+    def same(a, b):
+        return a[1] == b[1] and all(
+            np.array_equal(x, y) for oa, ob in zip(a[0], b[0])
+            for x, y in zip(oa, ob))
+
+    if not all(same(r, cpu16[0]) for r in card16 + cpu16[1:]):
+        raise SystemExit("drain: 16 triangles, the card's rows or posts "
+                         "differ from the CPU's")
+    print("drain (b): 16 triangles in 4 batches with posts, the card's "
+          "discovery, capturing and drained calls byte-equal to the CPU's "
+          "discovery and drained calls; drained call "
+          f"{json.dumps(_pipe(c16))}", flush=True)
+    launches["batches16"] = c16["exact_classify"]
+
+    # (c) the bench bake and the GPU baker's dispatch in turns with the
+    # discovery path, which bakes a second texture of the same data with
+    # its caps emptied before each bake: the GPU baker's dispatch makes
+    # one call per scratch batch, and its second call finds the first's
+    # entries, runs on the chain (capturing at them) and reruns what
+    # overflows, so on a shared texture it would leave graphs that the
+    # drained dispatches must capture again
+    tex2 = _workload()[0]
+    gcfg = _gpu_cfg(_rgba(tex), uv_tris)
+    gcfg2 = _gpu_cfg(_rgba(tex2), uv_tris)
+    for name, d, d2, caps_of in (
+            ("bench", desc, _desc(tex2, uv_tris), tex2),
+            ("gpu", gcfg, gcfg2, gcfg2.alpha_texture.channel_view(3))):
+        ref = first if name == "bench" else _bake(d)
+
+        def discover(d2=d2, caps_of=caps_of):
+            setattr(caps_of, tbatch.CAPS_ATTR, {})
+            return _bake(d2)
+
+        results, times, counts = _in_turns(
+            {"drain": lambda d=d: _bake(d), "discovery": discover})
+        _need(counts["drain"], f"5 drained {name} bakes", spec=5 * nb,
+              discovery=0, spec_overflow=0, graph_capture=0,
+              graph_replay=5 * nb, count_sync=5 * nb, exact=5 * nb)
+        # on the discovery path every batch ends once, discovered or
+        # clean on the chain, and the bench bake (one call) discovers all
+        c = counts["discovery"]
+        ended = (c["pipeline.discovery"] + c["pipeline.spec"]
+                 - c["pipeline.spec_overflow"])
+        if ended != 5 * nb or (name == "bench"
+                               and c["pipeline.discovery"] != 5 * nb):
+            raise SystemExit(f"drain: 5 discovery {name} bakes: counts "
+                             f"{json.dumps(_pipe(c))}")
+        _need(c, f"5 discovery {name} bakes",
+              exact=c["pipeline.discovery"] + c["pipeline.spec"])
+        if not all(_results_equal(r, ref) for v in results.values()
+                   for r in v):
+            raise SystemExit(f"drain: a {name} bake in turns differs from "
+                             "its discovery bake")
+        for path in ("drain", "discovery"):
+            sm = _summary(utri, times[path])
+            sm["times_s"] = times[path]
+            sums[f"{name}.{path}"] = sm
+            key = name if path == "drain" else f"{name}_discovery"
+            launches[key] = counts[path]["exact_classify"]
+            print(f"drain (c) {name}, {path} path, 5 in turns: best "
+                  f"{sm['best_s']:.4f} s median {sm['median_s']:.4f} s "
+                  f"({sm['best_mutri_s']:.2f} M utri/s best); "
+                  f"{json.dumps(_per_bake(counts[path], 'pipeline.'))} per "
+                  f"bake ({card})", flush=True)
+
+    # (d) does a graph replay let other threads run
+    ratio, share = _gil_probe(tex, card)
+    sums["gil_probe"] = {"loop_ratio": ratio, "replay_share": share}
+
+    # (e) one drained bake profiled on every thread
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=all_threads()) as prof:
+        t0 = time.perf_counter()
+        res = _bake(desc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not _results_equal(res, first):
+        raise SystemExit("drain: the profiled bake differs from the "
+                         "discovery bake")
+    labels, busy = profile_labels(prof)
+    missing = [k for k in DRAIN_LABELS if k not in labels]
+    if missing:
+        raise SystemExit(f"drain: the profile has no {missing}")
+    if labels["omm.spec"][2] != 1:
+        raise SystemExit("drain: the profile shows omm.spec on "
+                         f"{labels['omm.spec'][2]} threads")
+    print(f"drain (e): profiled bench bake {wall * 1e3:.3f} ms wall, every "
+          f"thread; device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / 1e3 / wall:.4f} ({card}):")
+    for k in DRAIN_LABELS:
+        ms, n, th = labels[k]
+        print(f"  {k:14s} {ms:10.3f} ms x{n} on {th} thread(s)")
+    sums["profile"] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                       "labels": {k: labels[k] for k in DRAIN_LABELS}}
+    return launches, sums
 
 
 def main():
@@ -1858,6 +2176,9 @@ def main():
 
     # ---- 15. post (before 9) ----
     post_launches, post_sum = post_phase(card)
+
+    # ---- 16. drain (before 9) ----
+    drain_launches, drain_sums = drain_phase(card)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -1881,7 +2202,8 @@ def main():
                "scene.level9": scene_launches[9],
                **{f"spots.{k}": v for k, v in spot_launches.items()},
                **{f"spec.{k}": v for k, v in spec_launches.items()},
-               "post.classify": post_launches}
+               "post.classify": post_launches,
+               **{f"drain.{k}": v for k, v in drain_launches.items()}}
     print(json.dumps({"paths": {"bench": bench_sum, "nearest": near_sum,
                                 "mixed": mix_sum, "gpu": gpu_sum,
                                 "gpu_compute_only": co_sum,
@@ -1891,7 +2213,8 @@ def main():
                                 "surface": {**surface_sums,
                                             "tools_launches": tools_launches},
                                 "scene": scene_sums, "spots": spot_sums,
-                                "spec": spec_sums, "post": post_sum},
+                                "spec": spec_sums, "post": post_sum,
+                                "drain": drain_sums},
                       "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",

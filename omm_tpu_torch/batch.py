@@ -1,17 +1,17 @@
 """Batched classification of work items through the two-phase engine.
 
 Counterpart of `omm_tpu.kernels.twophase.classify_work_items_batches`,
-with its single-sync pipeline.  A batch's cap key is the JAX package's:
-(subdiv, descent levels, items, all active).  The texture's caps cache
-(`texture._omm_torch_caps`, the JAX package's `_omm_caps`) maps a key to
-the capacities (per-level parents, survivors, per-mip blocks) that the
-discovery path saw, with headroom (`host.caps_entry`).
+with its single-sync pipeline and its concurrent drain.  A batch's cap
+key is the JAX package's: (subdiv, descent levels, items, all active).
+The texture's caps cache (`texture._omm_torch_caps`, the JAX package's
+`_omm_caps`) maps a key to the capacities (per-level parents,
+survivors, per-mip blocks) that the discovery path saw, with headroom
+(`host.caps_entry`).
 
   - A batch whose key is cached runs its whole stage chain at those
     capacities (`twophase.spec_chain`): on a card as one CUDA graph
-    (`graphs`), on the CPU eagerly.  Every cached batch is enqueued
-    before any is drained; each payload, [meta int32s | packed rows],
-    comes to the host in one copy (pinned memory on a card).
+    (`graphs`), on the CPU eagerly.  Its payload, [meta int32s | packed
+    rows], comes to the host in one copy (pinned memory on a card).
   - The drain reads each payload's meta.  A flagged overflow, or a key
     not in the cache, sends the batch to the discovery path: the
     exact-size stages (`stage_ab`, `stage_c_mip` for every mip,
@@ -22,6 +22,37 @@ Which path a batch takes depends on the caps cache alone: setting or
 emptying `texture._omm_torch_caps` chooses it.  Both give the same
 bytes.
 
+The threads of a call are the JAX package's:
+
+  1. With more than one fast-path batch, one enqueue thread (a
+     single-worker executor made per call) issues every batch's chain
+     in batch order, on the caller's current stream: every copy-in,
+     replay, capture and copy-out of the call.  The calling thread
+     builds each batch (its host tables and cached planes) and submits
+     it at once, so the device starts on batch 0 while later batches
+     are built.  A single batch is enqueued inline.
+  2. Items off the fast path then take the slow routes on the calling
+     thread, before the first drain: their device work queues beside
+     the replays, and their host work overlaps the device's.
+  3. The calling thread drains the batches in order: it waits for the
+     batch's enqueue and its payload's event (label `omm.drain`) and
+     reads the meta.  Each clean batch's `_Batch.write_back` (the post
+     pass, `PackedStates`, row merges) runs on a pool of POST_WORKERS
+     threads while the calling thread waits on the next batch; a batch
+     writes only its own results and posts.
+  4. After every write-back has finished and the enqueue thread has
+     shut down, the batches without a caps entry and those that
+     overflowed take the discovery path, in batch order.
+
+The JAX package waits for every enqueue before it drains, since its
+chunked fetch concatenates the payloads on the enqueue thread; the port
+copies each payload on its own, so batch k drains as soon as its own
+enqueue has returned.  An error in an enqueue or a write-back reaches
+the caller; queued enqueues are cancelled and no thread is left
+running.  torch.profiler sees the enqueue thread's `omm.spec` and the
+pool's `omm.row_post` only with `profile_all_threads` set in its
+experimental config.
+
 Items outside the engine's fast path take the JAX package's slow routes
 (twophase `_classify_slow`) on the same device through
 `engine.resample_fine_item`: a linear-filter level-line item goes to
@@ -29,6 +60,8 @@ Items outside the engine's fast path take the JAX package's slow routes
 it is a line triangle; any other item to the engine's own passes.
 """
 from __future__ import annotations
+
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +75,9 @@ from .twophase import (PackedStates, spec_chain, stage_ab, stage_c_mip,
 from .types import OpacityState, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
+#: threads that write batches back (twophase.classify_work_items_batches'
+#: pool)
+POST_WORKERS = 4
 
 
 def precompute(texture, uvs, subdiv, lg):
@@ -263,9 +299,10 @@ def _enqueue_spec(job):
         return entry, chain(*job.host_inputs()), None
 
 
-def _drain_spec(job, pending) -> bool:
-    """Read a batch's payload: write its rows back and return True, or
-    return False where its meta flags an overflow."""
+def _drain_spec(job, pending):
+    """Wait for a batch's payload and read its meta: the batch's (T, M/4)
+    packed rows (a view of the payload), or None where the meta flags an
+    overflow."""
     _, buf, ev = pending
     if ev is not None:
         ev.synchronize()
@@ -275,9 +312,24 @@ def _drain_spec(job, pending) -> bool:
     hdr = 4 * (m + 2 + len(job.bp["mips"]))
     if int(buf[:hdr].view(np.int32)[m + 1]) != 0:
         routes.count("spec_overflow")
-        return False
-    job.write_back(buf[hdr:].reshape(job.T, job.M // 4))
-    return True
+        return None
+    return buf[hdr:].reshape(job.T, job.M // 4)
+
+
+def _on_stream(stream, job):
+    """_enqueue_spec(job) with `stream` (the caller's, on a card) as this
+    thread's current stream."""
+    if stream is None:
+        return _enqueue_spec(job)
+    with torch.cuda.stream(stream):
+        return _enqueue_spec(job)
+
+
+def _run_now(fn, *args) -> Future:
+    """fn(*args) on this thread, as a resolved future."""
+    f = Future()
+    f.set_result(fn(*args))
+    return f
 
 
 def classify_work_items_batches(texture, cfg, batches, subdiv, *,
@@ -362,29 +414,54 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
                 for sd, uvs in fast_uvs.items() if uvs}
 
-    # every cached batch's chain is enqueued before any is drained; the
-    # rest, and every batch whose meta flags an overflow, take the
-    # discovery path after the drain, in batch order
+    # the threads of the module docstring: enqueue, slow items, drain,
+    # discovery
+    n_fast = sum(1 for f in fast_lists if f)
+    stream = (torch.cuda.current_stream(device) if device.type == "cuda"
+              else None)
+    enq = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="omm-enqueue")
+           if n_fast > 1 else None)
+    submit = enq.submit if enq is not None else _run_now
     posts = [{} for _ in batches]
-    jobs = []
-    for (items, out, todo, mins), fast, sd, post in zip(
-            routed, fast_lists, subdivs, posts):
-        if fast:
-            routes.count("fast_path", len(fast))
-            job = _Batch(texture, cfg, items, sd, fast, out,
-                         all(mins[i] == UO for i in fast), precomps[sd],
-                         device, exact,
-                         post=post if post_out is not None else None)
-            jobs.append((job, _enqueue_spec(job)))
-    for job, pending in jobs:
-        if pending is None or not _drain_spec(job, pending):
-            _run_batch(job)
-    for items, out, i, sd in slow:
-        st = items[i][1]
-        if st is None:
-            st = np.full(get_num_micro_triangles(sd), UO, np.uint8)
-        out[i] = engine.resample_fine_item(texture, cfg, items[i][0], sd, st,
-                                           device)
+    jobs, rerun = [], []
+    try:
+        for (items, out, todo, mins), fast, sd, post in zip(
+                routed, fast_lists, subdivs, posts):
+            if fast:
+                routes.count("fast_path", len(fast))
+                job = _Batch(texture, cfg, items, sd, fast, out,
+                             all(mins[i] == UO for i in fast), precomps[sd],
+                             device, exact,
+                             post=post if post_out is not None else None)
+                jobs.append((job, submit(_on_stream, stream, job)))
+        for items, out, i, sd in slow:
+            st = items[i][1]
+            if st is None:
+                st = np.full(get_num_micro_triangles(sd), UO, np.uint8)
+            out[i] = engine.resample_fine_item(texture, cfg, items[i][0], sd,
+                                               st, device)
+        pool = ThreadPoolExecutor(max_workers=POST_WORKERS,
+                                  thread_name_prefix="omm-post")
+        try:
+            written = []
+            for job, fut in jobs:
+                with record_function("omm.drain"):
+                    pending = fut.result()
+                    rows = (None if pending is None
+                            else _drain_spec(job, pending))
+                if rows is None:
+                    rerun.append(job)
+                else:
+                    written.append(pool.submit(job.write_back, rows))
+            for w in written:
+                w.result()
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+    finally:
+        if enq is not None:
+            enq.shutdown(wait=True, cancel_futures=True)
+    for job in rerun:
+        _run_batch(job)
     if post_out is not None:
         post_out.extend(posts)
     return results

@@ -471,7 +471,9 @@ def test_graph_replay_equals_eager_and_discovery(case, exact_engine, cuda):
     for j, p in zip(jobs, pending):
         p[2].synchronize()
         assert torch.equal(p[1], want)
-        assert batch._drain_spec(j, p)
+        rows = batch._drain_spec(j, p)
+        assert rows is not None
+        j.write_back(rows)
         assert all(np.array_equal(a, b)
                    for a, b in zip(_rows(j.out), _rows(disc.out)))
 

@@ -212,7 +212,9 @@ def test_spec_chain_equals_discovery_stages(case):
                                len(job.bp["mips"]), job.T, job.M)
     m = len(job.bp["levels"]) - 1
     assert int(meta[m + 1]) == 0
-    assert batch._drain_spec(job, (caps, buf, ev))
+    rows = batch._drain_spec(job, (caps, buf, ev))
+    assert rows is not None
+    job.write_back(rows)
     for a, b in zip(disc, job.out):
         a = a.packed if isinstance(a, ttp.PackedStates) else a
         b = b.packed if isinstance(b, ttp.PackedStates) else b

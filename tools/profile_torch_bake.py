@@ -11,10 +11,13 @@ or "mixed" (its 312-triangle mesh over every linear route), or "scene"
 bench triangles through the GPU baker's dispatch chain on its RGBA
 texture (the DescPatch pass is the label omm.desc_patch).  2 warm-up
 bakes (the first discovers the batches' capacities, the second
-captures their CUDA graphs), then one bake under torch.profiler.  Prints
-the wall seconds of the profiled bake, host time per stage and route
-label (omm.*), the work items per route, the pipeline's counts (batches
-per path, graph captures and replays, count syncs), the kernel and
+captures their CUDA graphs), then one bake under torch.profiler, on
+every thread (the batch pipeline's enqueue thread issues the chains,
+omm.spec, and a pool writes the rows back, omm.row_post).  Prints the
+wall seconds of the profiled bake, host time per stage and route label
+(omm.*) with the threads it ran on, the calling thread's waits on the
+batches (omm.drain), the work items per route, the pipeline's counts
+(batches per path, graph captures and replays, count syncs), the kernel and
 graph launch calls, the host operations with the most self CPU time,
 device time per kernel, and the device's busy and idle shares of the
 bake's wall time.  With --trace, the Chrome trace is written to PATH.
@@ -64,8 +67,8 @@ def main():
         chip_smoke._bake(desc, dev)
     torch.cuda.synchronize()
     ot.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=chip_smoke.all_threads()) as prof:
         t0 = time.perf_counter()
         chip_smoke._bake(desc, dev)
         torch.cuda.synchronize()
@@ -83,19 +86,17 @@ def main():
         if k in calls else f"{k} 0"
         for k in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                   "cudaGraphLaunch")))
-    print("host time per stage label (ms, inclusive):")
-    for e in sorted(ev, key=lambda e: -e.cpu_time_total):
-        if e.key.startswith("omm."):
-            print(f"  {e.key:22s} {e.cpu_time_total / 1e3:10.3f} "
-                  f"x{e.count}")
-    dev_us = 0.0
-    rows = []
-    for e in ev:
-        if e.device_type != DeviceType.CUDA or e.key.startswith("omm."):
-            continue  # host ops and the stage labels' device-side spans
-        t = e.self_device_time_total
-        rows.append((t, e.key, e.count))
-        dev_us += t
+    labels, busy_ms = chip_smoke.profile_labels(prof)
+    print("host time per stage label (ms, inclusive, summed over threads):")
+    for k, (ms, n, th) in sorted(labels.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {k:22s} {ms:10.3f} x{n} on {th} thread(s)")
+    if "omm.drain" in labels:
+        ms, n, _ = labels["omm.drain"]
+        print(f"omm.drain: the calling thread waited {ms:.3f} ms on {n} "
+              "batches")
+    rows = [(e.self_device_time_total, e.key, e.count) for e in ev
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("omm.")]  # not the labels' spans
     print("host ops by self CPU time (ms):")
     host = [e for e in ev if e.device_type != DeviceType.CUDA
             and not e.key.startswith("omm.")]
@@ -108,9 +109,9 @@ def main():
     for t, k, n in rows:
         if "exact_classify" in k:
             print(f"exact kernel: {t / 1e3:.4f} ms device in {n} launches")
-    print(f"device busy {dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall: "
-          f"busy share {dev_us / 1e6 / wall:.4f}, idle share "
-          f"{1 - dev_us / 1e6 / wall:.4f}")
+    print(f"device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} ms wall: "
+          f"busy share {busy_ms / 1e3 / wall:.4f}, idle share "
+          f"{1 - busy_ms / 1e3 / wall:.4f}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)
