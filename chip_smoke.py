@@ -2,16 +2,17 @@
 """Smoke test of omm_tpu_torch on one CUDA card: the quickest proof that
 the port builds, runs its main path through its kernels, and is right.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
   1. device  card name and power limit (nvidia-smi), torch and CUDA
              versions; no CUDA device is an error, never a CPU fallback
-  2. build   the exact-classification kernel, compiled by nvcc for
-             sm_90a from omm_tpu_torch/csrc/, with ptxas's register and
-             spill report and the launch shape
+  2. build   the exact-classification kernel and the capacity chain's
+             kernels, two libraries compiled at once by nvcc for sm_90a
+             from omm_tpu_torch/csrc/, with ptxas's register and spill
+             report and the exact kernel's launch shape
   3. kernel  two slot streams from the port's stage_ab on the card: the
              first 48-triangle batch of the benchmark workload (1024^2
              FP32 clamp texture, 256 triangles from RandomState(42),
@@ -192,8 +193,31 @@ and prints no result line):
              omm.drain (the calling thread), omm.spec (on one thread),
              omm.row_post with the threads it ran on, device busy and
              idle share
+ 17. chain   (runs before phase 9, after 16) the capacity chain's
+             descent and tile-slot kernels (kernels.chain: descend_sides,
+             tile_keys, tile_slots with its discovery form slot_stream):
+             (a) every call of each on the first batch's discovery path
+             and capacity chain of six streams, held against its plain
+             version on the same inputs, every lane equal: the bench
+             batch, _spot_multimip's 3-mip chain, the wrapped spot,
+             subdiv12, a partial bench batch, and the bench batch at an
+             eighth of its caps (the flag must be set); (b) each
+             kernel's device time (torch.profiler) and event time summed
+             over the bench batch's calls, its bound and share, the
+             plain version's time; (c) launches per bench bake on the
+             chain, counted just around it; (d) one profiled bench bake
+             with the kernels and one with their plain versions in their
+             place (the device program before the kernels), in turns
+             after warm-ups on textures of their own: device kernels,
+             device busy ms and idle share, and 5 unprofiled bakes each;
+             (e) with --parent DIR (another checkout, such as the parent
+             commit unpacked into the gitignored build/), one profiled
+             bench bake of each tree (tools/profile_torch_bake.py
+             --package-root: device kernels and busy ms), then the bench
+             bake and the GPU dispatch timed by tools/time_torch_bake.py
+             in turns, one process each: parent, this, this, parent
 
-Every timed bake of phases 4-16 comes after 2 warm-ups, the first of
+Every timed bake of phases 4-17 comes after 2 warm-ups, the first of
 which discovers the capacities and the second captures the graphs; every
 two-phase batch of the timed bakes must start on the capacity chain
 (overflows and reruns are counted and printed), and the timed bakes must
@@ -215,8 +239,9 @@ run, the farm's worker processes included: the port must not need
 them.  Everything is reached through
 omm_tpu_torch.  The checks against the JAX package's numpy oracle run
 on the card as tests/test_torch_cuda.py.
-The second-to-last line is the kernels' JSON record, the last line the
-result: {"ok": true, "device": {...}}.
+The second-to-last line is the kernels' JSON record (the exact kernel
+and the three chain kernels), the last line the result: {"ok": true,
+"device": {...}}.
 """
 import importlib.abc
 import sys
@@ -235,6 +260,7 @@ class _NoJax(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, _NoJax())
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
@@ -1613,7 +1639,7 @@ def spec_phase(card):
     sums["profile"] = [ln for ln in prof.stdout.splitlines()
                        if ln.startswith(("profiled", "pipeline", "launch",
                                          "device busy", "exact kernel",
-                                         "omm.drain"))]
+                                         "omm.drain", "device kernels"))]
     print(f"memory_reserved after phase 14: "
           f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB "
           f"(allocated {torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB) "
@@ -2013,7 +2039,336 @@ def drain_phase(card):
     return launches, sums
 
 
-def main():
+#: phase 17's streams: (name, the bake whose first batch it is, partial,
+#: caps divided by)
+CHAIN_STREAMS = (("bench", "bench", False, 1),
+                 ("multimip_small", "multimip_small", False, 1),
+                 ("wrapped", "wrapped", False, 1),
+                 ("subdiv12", "subdiv12", False, 1),
+                 ("partial", "bench", True, 1),
+                 ("overflow", "bench", False, 8))
+#: each chain kernel: (its wrappers' names in chain.recording, the device
+#: kernels it launches as torch.profiler names them, its work function)
+CHAIN_KERNELS = {
+    "descend_sides": (("descend_sides",), "descend_kernel"),
+    "tile_keys": (("tile_keys",), "keys_kernel"),
+    "tile_slots": (("tile_slots", "slot_stream"), "slots_"),
+}
+
+
+def _first_batch_job(desc, dev, partial):
+    """The first batch of desc's items as the bake batches them, as the
+    batch pipeline's job on `dev`: fresh items, or partial ones (a third
+    of each item's micro-triangles already resolved)."""
+    from omm_tpu_torch import batch, host
+    from omm_tpu_torch.bake import (MAX_UTRI_PER_BATCH, Options, _config,
+                                    setup_work_items, split_tail_light)
+    opts = Options.from_flags(desc.bake_flags)
+    uvs = [it.uv_tri for it in setup_work_items(desc, opts)]
+    level = desc.max_subdivision_level
+    n = len(split_tail_light(list(range(len(uvs))), [max(
+        1, MAX_UTRI_PER_BATCH // 4 ** level)])[0])
+    uvs = uvs[:n]
+    items = [(u, None) for u in uvs]
+    if partial:
+        items = []
+        for k, u in enumerate(uvs):
+            st = np.full(4 ** level, 3, np.uint8)
+            st[k % 3::3] = 0
+            items.append((u, st))
+    pre = batch.precompute(desc.texture, uvs, level,
+                           host._group_level(desc.texture, uvs, level))
+    return batch._Batch(desc.texture, _config(desc, opts), items, level,
+                        list(range(n)), [None] * n, not partial, pre, dev,
+                        None)
+
+
+def _chain_calls(job, dev, div):
+    """Every chain kernel call of the job's discovery path and of its
+    capacity chain at its caps entry divided by `div`, eagerly on the
+    card (chain.recording): (calls of the discovery path, calls of the
+    chain, the chain's payload)."""
+    from omm_tpu_torch import batch
+    from omm_tpu_torch.kernels import chain
+    disc, spec = [], []
+    with chain.recording(disc):
+        batch._run_batch(job)
+    Cs, K_cap, nblks = job.texture._omm_torch_caps[job.cap_key]
+    entry = (tuple(max(c // div, 1) for c in Cs), max(K_cap // div, 1),
+             tuple(max(n // div, 1) for n in nblks))
+    inputs = [t.to(dev) for t in job.host_inputs()]
+    with chain.recording(spec):
+        pay = batch.spec_fn(job, entry)(*inputs)
+    torch.cuda.synchronize()
+    return disc, spec, pay
+
+
+def _calls_equal_plain(calls, what):
+    """Fail unless each recorded call's result equals its plain version's
+    on the same inputs, on every lane.  Returns {wrapper: calls}."""
+    from omm_tpu_torch.kernels import chain
+    seen = {}
+    for kernel, name, fn, plain, args, kw, out in calls:
+        err = chain.result_diff(out, plain(*args, **kw))
+        if err:
+            raise SystemExit(f"chain kernels, {what}: {name} differs from "
+                             f"its plain version by up to {err}")
+        seen[name] = seen.get(name, 0) + 1
+    torch.cuda.synchronize()
+    return seen
+
+
+def _call_work(name, args, kw, out):
+    from omm_tpu_torch.kernels import chain
+    if name == "descend_sides":
+        return chain.descend_work(args[0], args[1], out, n_out=kw["n_out"],
+                                  uv_flat=kw["uv_flat"], cls=kw["cls"],
+                                  test=kw.get("test", True),
+                                  act_span=kw.get("act_span", 0))
+    if name == "tile_keys":
+        return chain.tile_keys_work(args[0], args[1], out, kw["uv_flat"])
+    return chain.tile_slots_work(*args)
+
+
+@contextlib.contextmanager
+def _plain_chain():
+    """Within the block the two-phase stages take the chain kernels'
+    plain versions on every device (the port's device program before the
+    kernels), to compare the two in one process."""
+    from omm_tpu_torch import twophase
+    from omm_tpu_torch.kernels import chain
+    swap = {"descend_sides": chain.descend_sides_torch,
+            "tile_keys": chain.tile_keys_torch,
+            "tile_slots": chain.tile_slots_torch,
+            "chain_slot_stream": chain.slot_stream_torch}
+    saved = {a: getattr(twophase, a) for a in swap}
+    try:
+        for a, f in swap.items():
+            setattr(twophase, a, f)
+        yield
+    finally:
+        for a, f in saved.items():
+            setattr(twophase, a, f)
+
+
+def device_kernels(prof):
+    """(device kernels, device copies and sets, {kernel: (launches, ms)})
+    of a torch.profiler profile."""
+    from torch.autograd import DeviceType
+    kernels, moves, by_name = 0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("omm."):
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            moves += e.count
+        else:
+            kernels += e.count
+            by_name[e.key] = (e.count, e.self_device_time_total / 1e3)
+    return kernels, moves, by_name
+
+
+def _profiled_bake(desc):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=all_threads()) as prof:
+        t0 = time.perf_counter()
+        res = _bake(desc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, busy = profile_labels(prof)
+    kernels, moves, by_name = device_kernels(prof)
+    return res, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                 "idle_share": 1 - busy / 1e3 / wall,
+                 "device_kernels": kernels, "device_moves": moves,
+                 "top": sorted(((v[1], k[:60], v[0]) for k, v in
+                                by_name.items()), reverse=True)[:6]}
+
+
+def _parent_in_turns(parent, card):
+    """bench and the GPU dispatch timed by tools/time_torch_bake.py, one
+    process each, parent, this, this, parent: {workload: {"parent" |
+    "this": [summaries]}}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {"profiles": {}}
+    for who in ("parent", "this"):
+        cmd = [sys.executable, os.path.join(root, "tools",
+                                            "profile_torch_bake.py"),
+               "--workload", "bench"]
+        if who == "parent":
+            cmd += ["--package-root", parent]
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise SystemExit(f"profile_torch_bake.py ({who}) failed: "
+                             f"{r.stderr[-2000:]}")
+        keep = [ln for ln in r.stdout.splitlines() if ln.startswith((
+            "profiled", "device kernels", "device busy", "  exact",
+            "  descend", "  keys", "  slots", "launch calls"))]
+        out["profiles"][who] = keep
+        print(f"chain (e) profiled bench bake, {who}:\n  "
+              + "\n  ".join(keep), flush=True)
+    for wl in ("bench", "gpu"):
+        out[wl] = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            cmd = [sys.executable, os.path.join(root, "tools",
+                                                "time_torch_bake.py"),
+                   "--workload", wl]
+            if who == "parent":
+                cmd += ["--package-root", parent]
+            r = subprocess.run(cmd, cwd=root, capture_output=True,
+                               text=True, timeout=600)
+            if r.returncode != 0:
+                raise SystemExit(f"time_torch_bake.py ({who}, {wl}) failed:"
+                                 f" {r.stderr[-2000:]}")
+            rec = json.loads(r.stdout.strip().splitlines()[-1])
+            out[wl][who].append({k: rec[k] for k in ("best_s", "median_s")})
+            print(f"chain (e) {wl} {who}: best {rec['best_s']:.4f} s median "
+                  f"{rec['median_s']:.4f} s ({rec['card']})", flush=True)
+    return out
+
+
+def chain_phase(card, parent=None):
+    """Phase 17: the capacity chain's descent and tile-slot kernels.
+    Returns ({kernel: record for the kernels line}, summary)."""
+    import omm_tpu_torch as ot
+    from omm_tpu_torch.kernels import chain
+    dev = torch.device("cuda", 0)
+
+    # (a) each kernel against its plain version on every stream
+    tex, uv_tris = _workload()
+    descs = {name: d for name, d, _, _ in spot_workloads(tex, uv_tris)}
+    descs["bench"] = _desc(tex, uv_tris)
+    bench_calls = None
+    streams = {}
+    for name, src, partial, div in CHAIN_STREAMS:
+        desc = descs[src]
+        desc.texture._omm_torch_caps = {}
+        job = _first_batch_job(desc, dev, partial)
+        disc, spec, pay = _chain_calls(job, dev, div)
+        seen = _calls_equal_plain(disc + spec, name)
+        m = len(job.bp["levels"]) - 1
+        meta = pay[:4 * (m + 2 + len(job.bp["mips"]))].view(
+            torch.int32).tolist()
+        if (meta[m + 1] == 1) != (div > 1):
+            raise SystemExit(f"chain kernels, {name}: meta {meta}")
+        for need in ("descend_sides", "tile_keys", "tile_slots",
+                     "slot_stream"):
+            if need not in seen:
+                raise SystemExit(f"chain kernels, {name}: no {need} call")
+        streams[name] = {"items": job.T, "subdiv": job.subdiv,
+                         "levels": list(job.bp["levels"]),
+                         "mips": len(job.bp["mips"]), "meta": meta,
+                         "calls": seen}
+        print(f"chain (a) {name}: {job.T} items at {job.subdiv}, levels "
+              f"{list(job.bp['levels'])}, {len(job.bp['mips'])} mip(s), "
+              f"meta {meta}; every call equal to its plain version on "
+              f"every lane: {json.dumps(seen)}", flush=True)
+        if name == "bench":
+            bench_calls = spec
+
+    # (b) each kernel's time at bench's first batch (the capacity chain's
+    # calls), its bound, the plain version's time
+    recs = {}
+    for kname, (wrappers, dev_name) in CHAIN_KERNELS.items():
+        calls = [c for c in bench_calls if c[1] in wrappers]
+        ms = ev_ms = plain_ms = bound_ms = 0.0
+        nbytes = ops = 0
+        for _, name, fn, plain, args, kw, out in calls:
+            d = device_ms(lambda: fn(*args, **kw), dev_name)
+            e = _cuda_ms(lambda: fn(*args, **kw))
+            ms += d if d is not None else e
+            ev_ms += e
+            plain_ms += _cuda_ms(lambda: plain(*args, **kw), reps=5,
+                                 burst=1, warm=1)
+            work = _call_work(name, args, kw, out)
+            bound_ms += chain.bound(work)[0]
+            nbytes += work["bytes"]
+            ops += work["ops"]
+        bound_by = chain.bound({"bytes": nbytes, "ops": ops})[1]
+        recs[kname] = {"calls_per_batch": len(calls), "ms": ms,
+                       "event_ms": ev_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": nbytes, "ops": ops,
+                       "share_of_bound": bound_ms / ms if ms else None}
+        print(f"chain (b) {kname}, bench's first batch ({len(calls)} "
+              f"calls): device {ms:.5f} ms, events {ev_ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{nbytes} B, {ops} ops), {bound_ms / ms:.4f} of it ({card})",
+              flush=True)
+
+    # (c) launches per bench bake on the chain, counted just around it
+    desc = _desc(*_workload())
+    for _ in range(2):
+        _bake(desc)
+    torch.cuda.synchronize()
+    ot.reset_launches()
+    res = _bake(desc)
+    counts = _counts()
+    per_bake = {k: counts[k] for k in ("exact_classify", *CHAIN_KERNELS)}
+    print(f"chain (c) launches per bench bake: {json.dumps(per_bake)}; "
+          f"pipeline {json.dumps(_pipe(counts))}", flush=True)
+    if min(per_bake.values()) == 0 or counts["pipeline.graph_replay"] != 6:
+        raise SystemExit("chain (c): a kernel was not launched, or the bake "
+                         "left the chain")
+    for k in CHAIN_KERNELS:
+        recs[k]["launches_per_bake"] = per_bake[k]
+
+    # (d) device kernels and busy ms per bench bake, kernels against the
+    # plain versions in their place, one profiled bake each in turns
+    # after warm-ups on textures of their own
+    descs = {"kernels": desc, "plain": _desc(*_workload())}
+    with _plain_chain():
+        for _ in range(2):
+            ref = _bake(descs["plain"])
+    if not _results_equal(ref, res):
+        raise SystemExit("chain (d): the plain chain's bake differs")
+    prof = {"kernels": [], "plain": []}
+    times = {"kernels": [], "plain": []}
+    for who in ("plain", "kernels", "kernels", "plain"):
+        with _plain_chain() if who == "plain" else contextlib.nullcontext():
+            r, p = _profiled_bake(descs[who])
+            rounds = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                r2 = _bake(descs[who])
+                rounds.append(time.perf_counter() - t0)
+        if not (_results_equal(r, res) and _results_equal(r2, res)):
+            raise SystemExit(f"chain (d): a {who} bake differs")
+        prof[who].append(p)
+        times[who] += rounds
+        print(f"chain (d) {who}: profiled bake {p['wall_ms']:.3f} ms wall, "
+              f"device busy {p['device_busy_ms']:.3f} ms (idle share "
+              f"{p['idle_share']:.4f}), {p['device_kernels']} device "
+              f"kernels + {p['device_moves']} copies/sets; 5 bakes best "
+              f"{min(rounds):.4f} s median {statistics.median(rounds):.4f} "
+              f"s ({card})", flush=True)
+        for ms, k, n in p["top"]:
+            print(f"    {ms:9.4f} ms x{n:<4d} {k}")
+    summary = {"streams": streams, "per_bake": per_bake,
+               "profiles": prof,
+               "bench_in_turns": {k: _summary(N_TRIS * 4 ** SUBDIV, v)
+                                  for k, v in times.items()}}
+
+    # (e) against the parent tree, where one is given
+    if parent is not None:
+        summary["parent_in_turns"] = _parent_in_turns(parent, card)
+    else:
+        print("chain (e): no --parent checkout given; the in-turns timing "
+              "against it is not run", flush=True)
+    return recs, summary
+
+
+#: the chain kernels' sources, and the XLA programs of the JAX package
+#: they replace (not Pallas kernels)
+CHAIN_SOURCES = {"descend_sides": "omm_tpu_torch/csrc/chain_descend.cu",
+                 "tile_keys": "omm_tpu_torch/csrc/chain_descend.cu",
+                 "tile_slots": "omm_tpu_torch/csrc/chain_slots.cu"}
+CHAIN_REPLACES = {"descend_sides": "omm_tpu/kernels/twophase.py:270",
+                  "tile_keys": "omm_tpu/kernels/twophase.py:528",
+                  "tile_slots": "omm_tpu/kernels/twophase.py:547"}
+
+
+def main(parent=None):
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; it runs on the card "
@@ -2035,15 +2390,22 @@ def main():
     from omm_tpu_torch.bake import Options, _config, setup_work_items
     from omm_tpu_torch.kernels import build, exact
 
-    # ---- 2. build ----
+    # ---- 2. build (both CUDA libraries at once) ----
+    import concurrent.futures as cf
     t0 = time.perf_counter()
-    build.cuda_library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, "
-          f"{build.build_dir()})")
-    for line in build.BUILD_INFO.get("omm_exact_cuda", {}).get(
-            "log", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    with cf.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(build.cuda_library),
+                  pool.submit(build.chain_cuda_library)]:
+            f.result()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, both "
+          f"libraries at once, {build.build_dir()})")
+    for lib in ("omm_exact_cuda", "omm_chain_cuda"):
+        info = build.BUILD_INFO.get(lib, {})
+        if info:
+            print(f"  {lib}: {info['seconds']:.2f} s")
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernel ----
     tex, uv_tris = _workload()
@@ -2085,6 +2447,12 @@ def main():
     launches = main_launches["exact_classify"]
     if launches == 0:
         raise SystemExit("the bake never launched the exact kernel")
+    for k in CHAIN_KERNELS:
+        if main_launches[k] == 0:
+            raise SystemExit(f"the bake never launched the {k} kernel")
+    print("main path launches in 5 bakes: " + json.dumps(
+        {k: main_launches[k] for k in ("exact_classify", *CHAIN_KERNELS)}),
+        flush=True)
     got = results[-1]
 
     # ---- 5. correctness ----
@@ -2179,6 +2547,9 @@ def main():
 
     # ---- 16. drain (before 9) ----
     drain_launches, drain_sums = drain_phase(card)
+
+    # ---- 17. chain kernels (before 9) ----
+    chain_recs, chain_sum = chain_phase(card, parent)
     if [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
         raise SystemExit("jax or the JAX package was imported")
 
@@ -2214,7 +2585,7 @@ def main():
                                             "tools_launches": tools_launches},
                                 "scene": scene_sums, "spots": spot_sums,
                                 "spec": spec_sums, "post": post_sum,
-                                "drain": drain_sums},
+                                "drain": drain_sums, "chain": chain_sum},
                       "card": card}))
     print(json.dumps({"kernels": [{
         "name": "exact_classify", "route": "cuda",
@@ -2224,7 +2595,17 @@ def main():
         "launches_per_bake": launches // 5,
         "max_abs_err": err, "ms": ms_dev, "event_ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "spot_streams": streams}]}))
+        "library_ms": None, "spot_streams": streams}] + [{
+            "name": k, "route": "cuda", "source": CHAIN_SOURCES[k],
+            "replaces": CHAIN_REPLACES[k], "launches": main_launches[k],
+            "launches_per_bake": chain_recs[k]["launches_per_bake"],
+            "max_abs_err": 0, "ms": chain_recs[k]["ms"],
+            "event_ms": chain_recs[k]["event_ms"],
+            "plain_ms": chain_recs[k]["plain_ms"],
+            "bound_ms": chain_recs[k]["bound_ms"],
+            "bound_by": chain_recs[k]["bound_by"], "library_ms": None,
+            "calls_per_batch": chain_recs[k]["calls_per_batch"]}
+            for k in CHAIN_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2234,5 +2615,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--farm-worker"]:
         farm_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                     sys.argv[5])
+    elif sys.argv[1:2] == ["--parent"]:
+        main(os.path.abspath(sys.argv[2]))
     else:
         main()

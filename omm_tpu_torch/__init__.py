@@ -53,7 +53,7 @@ from .texture import Texture
 from . import gpu, parallel, routes, serialize
 from .bake import bake
 from .batch import classify_work_items_batches
-from .kernels import exact as exact_kernel
+from .kernels import counts as kernel_counts
 from .stats import collect_stats, decode_states, get_stats
 from .baker import Baker
 from .log import Logger, MessageSeverity
@@ -67,7 +67,7 @@ def launches() -> dict:
     items each classification route took ("route.<name>", see
     `routes`)."""
     with routes.LOCK:
-        out = {"exact_classify": exact_kernel.LAUNCHES}
+        out = dict(kernel_counts.COUNTS)
         out.update({f"route.{k}": routes.COUNTS[k] for k in routes.NAMES})
     return out
 
@@ -84,7 +84,7 @@ def reset_launches() -> None:
     """Set every kernel's launch count, every route's count and every
     pipeline count to 0."""
     with routes.LOCK:
-        exact_kernel.LAUNCHES = 0
+        kernel_counts.reset()
         routes.reset()
 
 

@@ -269,15 +269,12 @@ def _graph_key(job):
             int(cfg.cutoff_gt), int(cfg.cutoff_le), job.exact)
 
 
-def _enqueue_spec(job):
-    """Start the batch's capacity chain if its key is cached: returns
-    (caps, host payload, CUDA event or None), or None."""
-    entry = _caps(job.texture).get(job.cap_key)
-    if entry is None:
-        return None
+def spec_fn(job, entry):
+    """The batch's capacity chain at the caps entry (Cs, K_cap, nblks):
+    a function of the batch's inputs (job.host_inputs(), on its device)
+    that returns the payload."""
     Cs, K_cap, nblks = entry
     bp, cfg = job.bp, job.cfg
-    routes.count("spec")
 
     def chain(uv_flat, ccw, active=None):
         return spec_chain(
@@ -290,6 +287,17 @@ def _enqueue_spec(job):
             promotion=cfg.promotion, cutoff_gt=cfg.cutoff_gt,
             cutoff_le=cfg.cutoff_le, exact=job.exact)
 
+    return chain
+
+
+def _enqueue_spec(job):
+    """Start the batch's capacity chain if its key is cached: returns
+    (caps, host payload, CUDA event or None), or None."""
+    entry = _caps(job.texture).get(job.cap_key)
+    if entry is None:
+        return None
+    routes.count("spec")
+    chain = spec_fn(job, entry)
     if job.device.type == "cuda":
         buf, ev = graphs.run(job.texture, job.device,
                              _graph_key(job), entry,

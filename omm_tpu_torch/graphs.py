@@ -30,7 +30,7 @@ import torch
 from torch.profiler import record_function
 
 from . import routes
-from .kernels import exact as exact_kernel
+from .kernels import counts
 from .planes import tex_cache
 
 #: one capture at a time in the process (a capture syncs the device)
@@ -41,7 +41,7 @@ _STATE_LOCK = threading.Lock()
 
 class _Entry:
     """One captured chain: its capacities, graph, static inputs, payload
-    and the exact launches each replay makes."""
+    and the kernel launches each replay makes, by name."""
 
     __slots__ = ("caps", "graph", "inputs", "payload", "launches")
 
@@ -107,7 +107,7 @@ def run(texture, device, key, caps, host_inputs, chain):
                                     device)
             _copy_in(entry.inputs, host_inputs)
             entry.graph.replay()
-            exact_kernel.count_launch(entry.launches)
+            counts.add(entry.launches)
             routes.count("graph_replay")
             return _to_host(entry.payload)
 
@@ -127,11 +127,11 @@ def _capture(st, key, caps, host_inputs, chain, device):
     result = _to_host(out)
 
     graph = torch.cuda.CUDAGraph()
-    exact_kernel.captured_launches()
+    counts.captured()
     with torch.cuda.graph(graph, pool=st.pool, stream=st.stream,
                           capture_error_mode="thread_local"):
         payload = chain(*static)
     st.graphs[key] = _Entry(caps, graph, static, payload,
-                            exact_kernel.captured_launches())
+                            counts.captured())
     routes.count("graph_capture")
     return result

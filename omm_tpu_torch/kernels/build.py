@@ -1,9 +1,10 @@
 """Builds the port's native code into shared libraries, loaded with
 ctypes.
 
-The CUDA library is compiled by nvcc for Hopper (`sm_90a`); the host
-library compiles the same exact-stage math (`csrc/exact_math.cuh`) with
-g++ for the CPU tests; the native runtime library (`csrc/omm_native.cpp`:
+The CUDA libraries are compiled by nvcc for Hopper (`sm_90a`): the exact
+stage's, and the capacity chain's descent and tile-slot kernels; the
+host libraries compile the same math (`csrc/exact_math.cuh`,
+`csrc/chain_math.cuh`) with g++ for the CPU tests; the native runtime library (`csrc/omm_native.cpp`:
 LZ4, XXH64, state packing) is built by g++ for the bake's host tail.
 Each is built at first use into `build/omm_tpu_torch/` beside the
 package (in a checkout), or into `~/.cache/omm_tpu_torch/` where that
@@ -48,6 +49,7 @@ NATIVE_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-pthread",
                 "-shared", "-fPIC"]
 
 _LOCK = threading.Lock()
+_BUILD_LOCKS: dict = {}
 _LIBS: dict = {}
 #: per library: compiler output of the build this process ran (nvcc's
 #: -Xptxas=-v register and shared-memory report) and its seconds
@@ -93,9 +95,10 @@ def build_dir() -> Path:
     return d
 
 
-def _compile(name: str, cmd: list, sources: list, flags: list) -> Path:
-    """Build sources[0] (which includes the rest) into lib<name>_<digest>.so
-    in `build_dir()` unless that file exists."""
+def _compile(name: str, cmd: list, sources: list, flags: list,
+             compiled: int = 1) -> Path:
+    """Build the first `compiled` sources (which include the rest) into
+    lib<name>_<digest>.so in `build_dir()` unless that file exists."""
     key = [cmd[0], *flags]
     if "-march=native" in flags:
         key.append(_host_target())
@@ -104,8 +107,8 @@ def _compile(name: str, cmd: list, sources: list, flags: list) -> Path:
         return out
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    r = subprocess.run([*cmd, *flags, str(sources[0]), "-o", str(tmp)],
-                       capture_output=True, text=True)
+    r = subprocess.run([*cmd, *flags, *map(str, sources[:compiled]), "-o",
+                        str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"building {sources[0].name} failed:\n"
                            f"{r.stdout}\n{r.stderr}")
@@ -120,16 +123,21 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _load(name: str, cmd, sources: list, flags: list, fns: dict):
-    """The loaded library `name`, built on first use; fns maps each
+def _load(name: str, cmd, sources: list, flags: list, fns: dict,
+          compiled: int = 1):
+    """The loaded library `name`, built on first use (one build at a time
+    per library; different libraries build at once); fns maps each
     exported function to its (argtypes, restype)."""
     lib = _LIBS.get(name)  # the per-launch path: one dict lookup
     if lib is not None:
         return lib
     with _LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_compile(name, cmd(), sources, flags)))
+            lib = ctypes.CDLL(str(_compile(name, cmd(), sources, flags,
+                                           compiled)))
             for fn, (argtypes, restype) in fns.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
@@ -163,6 +171,52 @@ def cuda_library(csrc=None):
     return _load(cuda_library_name(), lambda: [_nvcc()],
                  [CSRC / "exact_classify.cu", CSRC / "exact_math.cuh"],
                  NVCC_FLAGS, fns)
+
+
+_L = ctypes.c_int64
+#: omm_descend_sides: par, count, n_par, n_out, E, level, test, active,
+#: act_span, uv, nm, cls, mip_ints, side, node, valid, open
+_DESCEND_ARGS = [_P, _P, _L, _L, _L, _I, _I, _P, _L, _P, _I, _P, _P,
+                 _P, _P, _P, _P]
+#: omm_tile_keys: ids, kvalid, n, subdiv, uv, nm, mip_ints, keys
+_KEYS_ARGS = [_P, _P, _L, _I, _P, _I, _P, _P]
+#: omm_tile_slots: st, order, ids, K, nm, nblk, slot, padM, ids_slot,
+#: block_tile (then the CUDA entry's bsum scratch)
+_SLOTS_ARGS = [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P]
+#: omm_slot_stream: ids, slot, keys, n, nblk, ids_slot, block_tile
+_STREAM_ARGS = [_P, _P, _P, _L, _L, _P, _P]
+CHAIN_CUDA_SOURCES = ("chain_descend.cu", "chain_slots.cu")
+CHAIN_HEADERS = ("chain_math.cuh", "exact_math.cuh")
+
+
+def chain_cuda_library():
+    """The capacity chain's CUDA library (nvcc, one build of
+    chain_descend.cu and chain_slots.cu): `omm_descend_sides` (kernel A),
+    `omm_tile_keys` (B), `omm_tile_slots` (C) and `omm_slot_stream` (C's
+    discovery form) launch on the given stream and return
+    cudaGetLastError(); `omm_chain_error_string` names it;
+    `omm_tile_slots_chunks` sizes C's scratch."""
+    fns = {"omm_descend_sides": (_DESCEND_ARGS + [_P], _I),
+           "omm_tile_keys": (_KEYS_ARGS + [_P], _I),
+           "omm_tile_slots": (_SLOTS_ARGS + [_P, _P], _I),
+           "omm_slot_stream": (_STREAM_ARGS + [_P], _I),
+           "omm_tile_slots_chunks": ([_L], _L),
+           "omm_chain_error_string": ([_I], ctypes.c_char_p)}
+    return _load("omm_chain_cuda", lambda: [_nvcc()],
+                 [CSRC / f for f in CHAIN_CUDA_SOURCES + CHAIN_HEADERS],
+                 NVCC_FLAGS, fns, compiled=len(CHAIN_CUDA_SOURCES))
+
+
+def chain_host_library():
+    """The host build of the chain kernels' code (g++, chain_host.cpp):
+    the same entries with a `_host` suffix and no stream."""
+    return _load("omm_chain_host", lambda: ["g++"],
+                 [CSRC / "chain_host.cpp",
+                  *(CSRC / f for f in CHAIN_HEADERS)], GXX_FLAGS,
+                 {"omm_descend_sides_host": (_DESCEND_ARGS, _I),
+                  "omm_tile_keys_host": (_KEYS_ARGS, _I),
+                  "omm_tile_slots_host": (_SLOTS_ARGS, _I),
+                  "omm_slot_stream_host": (_STREAM_ARGS, _I)})
 
 
 def host_library():

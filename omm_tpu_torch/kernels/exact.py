@@ -21,43 +21,23 @@ stream, and `bound` turns that into the least time the card could take.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
-from .. import routes
+from . import counts
 from ..bird_torch import bary_cols, corner_cols, tri6_of
 from ..host import B, TILE, wrap_origin
 from ..levelline import (f32, level_line_values_kernel, tri_params)
 
-#: kernel launches made by `exact_counts` in this process, counted under
-#: `routes.LOCK` (mesh slots launch from several threads); a launch that
-#: a CUDA graph captures counts at each replay of the graph
-LAUNCHES = 0
-
-#: per thread: launches recorded into the CUDA graph this thread is
-#: capturing (`graphs` reads them with `captured_launches`)
-_CAPTURED = threading.local()
-
-
 def count_launch(n: int = 1) -> None:
-    """Add n launches to LAUNCHES, or, while this thread's current stream
-    is capturing a CUDA graph (which launches nothing yet), to the
-    graph's count."""
-    global LAUNCHES
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        _CAPTURED.n = getattr(_CAPTURED, "n", 0) + n
-        return
-    with routes.LOCK:
-        LAUNCHES += n
+    """Add n launches of the exact kernel (`counts.count`)."""
+    counts.count("exact_classify", n)
 
 
-def captured_launches() -> int:
-    """The launches this thread recorded into graphs since the last call
-    (and set that count to 0)."""
-    n = getattr(_CAPTURED, "n", 0)
-    _CAPTURED.n = 0
-    return n
+def __getattr__(name):
+    # LAUNCHES: the exact kernel's launches in this process (`counts`)
+    if name == "LAUNCHES":
+        return counts.COUNTS["exact_classify"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def derive_slot_geometry(ids, uv6, ccw, bt, *, subdiv, pad, ntx, size,

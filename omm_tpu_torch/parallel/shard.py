@@ -33,7 +33,8 @@ from ..classify import linear_counts, row_blocks
 from ..levelline import get_state_from_coverage
 from ..planes import check_device
 from ..texture import MipInfo
-from ..twophase import PackedStates, window_origin
+from ..kernels.chain import window_origin
+from ..twophase import PackedStates
 from ..types import OpacityState, get_num_micro_triangles
 
 OMM_AXIS = "omm"

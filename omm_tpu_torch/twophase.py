@@ -35,8 +35,14 @@ drops out-of-range scatters and clamps gathers, where torch faults, so
 every capacity buffer has a dump lane past its end that takes the
 invalid lanes' writes, every invalid lane holds an in-range id (0), and
 every consumer masks by the lanes' validity, as `kvalid` does in the JAX
-programs.  `sides_for`'s class-plane lookup clamps explicitly, as XLA's
-2-D gather does.
+programs.  The window test's class-plane lookup clamps explicitly, as
+XLA's 2-D gather does.
+
+Both forms run the descent, the tile keys and the slot assignment
+through the hand-written kernels of `kernels.chain` (each level's
+window test and child expansion, the survivors' tile keys, the slots
+and slot streams after the stable sort), the exact stage through
+`kernels.exact`; on the CPU each takes its plain torch version.
 """
 from __future__ import annotations
 
@@ -46,9 +52,11 @@ import torch
 from torch.profiler import record_function
 
 from . import routes
-from .bird_torch import bary_cols, corner_cols, tri6_of
+from .bird_torch import bary_cols, corner_cols
 from .host import (B, TILE, _nearest_phase1_windows, _period_for,
                    _skip_final_p, wrap_origin)
+from .kernels.chain import descend_sides, tile_keys, tile_slots
+from .kernels.chain import slot_stream as chain_slot_stream
 from .kernels.exact import exact_counts
 from .levelline import f32, get_state_from_coverage
 from .planes import check_device, class_plane_cached
@@ -76,41 +84,8 @@ class PackedStates:
         return unpack_2bit_seq(self.packed, self.M)
 
 
-def window_origin(tri6, bu, bv, bd, w, h):
-    """floor(min corner * size - 0.5) per element, int32."""
-    (ax, ay), (bx, by), (cx, cy) = corner_cols(tri6, bu, bv, bd)
-    wf = f32(float(w))
-    hf = f32(float(h))
-    qxm = torch.minimum(torch.minimum(ax, bx), cx) * wf - 0.5
-    qym = torch.minimum(torch.minimum(ay, by), cy) * hf - 0.5
-    return (torch.floor(qxm).to(torch.int32),
-            torch.floor(qym).to(torch.int32))
-
-
-def sides_for(ids, tvec, level, uv_flat, planes_cls, mips, pads, periods):
-    """Combined-over-mips side (+1 / -1 / 0, int8) of the subtriangles
-    with curve index `ids` at `level` of items `tvec`.  The class-plane
-    lookup clamps out-of-range anchors per axis, as XLA's gather does."""
-    bu, bv, bd = bary_cols(ids, level)
-    tri6 = tri6_of(uv_flat, tvec)
-    side = None
-    for mi, (w, h) in enumerate(mips):
-        pad = pads[mi]
-        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
-        x0, y0 = wrap_origin(x0, y0, periods[mi])
-        cls = planes_cls[mi]
-        H2, W2 = cls.shape
-        yy = (y0.to(torch.int64) - 1 + pad).clamp(0, H2 - 1)
-        xx = (x0.to(torch.int64) - 1 + pad).clamp(0, W2 - 1)
-        s = cls[yy, xx]
-        side = s if side is None else torch.where(s == side, side,
-                                                  torch.zeros_like(s))
-    return side
-
-
-def tile_of(x0, y0, pad, ntx):
-    """Exact-stage tile id of a (wrapped) window origin."""
-    return ((y0 + pad) // TILE) * ntx + (x0 + pad) // TILE
+def _geo(uv_flat, mips, pads, periods):
+    return dict(uv_flat=uv_flat, mips=mips, pads=pads, periods=periods)
 
 
 def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
@@ -123,26 +98,22 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
     t*4^l + n of the tested nodes after level 0), ids (the K exact-stage
     survivors, flat t*M + m, in scan order), Cs (per-level parent
     counts), K, slots (per mip, each survivor's slot) and padMs (per
-    mip, the B-padded slot total).  Each count it reads on the host is
-    counted as routes' count_sync."""
-    device = uv_flat.device
+    mip, the B-padded slot total).  Each level is one `descend_sides`
+    call at its exact size (the count is the parents' length), the tile
+    keys one `tile_keys` call and the slots one `tile_slots` call after
+    the stable sort.  Each count it reads on the host is counted as
+    routes' count_sync."""
     T = uv_flat.shape[0]
     M = get_num_micro_triangles(subdiv)
     m = len(levels) - 1
     N0 = 4 ** levels[0]
-    span0 = M // N0
     skip = _skip_final_p(levels, all_active)
+    geo = _geo(uv_flat, mips, pads, periods)
 
-    node = torch.arange(T * N0, dtype=torch.int64, device=device)
-    side0 = sides_for(node & (N0 - 1), node >> (2 * levels[0]), levels[0],
-                      uv_flat, cls_levels[0], mips, pads, periods)
+    side0, node, _, unres = descend_sides(
+        None, None, E=N0, level=levels[0], n_out=T * N0, cls=cls_levels[0],
+        active=active, act_span=0 if all_active else M // N0, **geo)
     sides = [side0]
-    if all_active:
-        unres = side0 == 0
-    else:
-        gactive = active.reshape(T, N0, span0).any(dim=2).reshape(-1)
-        unres = (side0 == 0) & gactive
-
     Cs = []
     nodes = []
     ids = None
@@ -152,61 +123,39 @@ def stage_ab(cls_levels, uv_flat, active, *, subdiv, levels, mips, pads,
         par = node[unres]
         Cs.append(int(par.shape[0]))
         routes.count("count_sync")
-        jj = torch.arange(E, dtype=torch.int64, device=device)
-        node = (par[:, None] * E + jj[None, :]).reshape(-1)
         if i == m and skip:
             # step-1 tail: every child goes to the exact stage
-            ids = node
+            _, ids, _, _ = descend_sides(
+                par, None, E=E, level=li, n_out=par.shape[0] * E, cls=None,
+                test=False, **geo)
             break
-        side_i = sides_for(node & (4 ** li - 1), node >> (2 * li), li,
-                           uv_flat, cls_levels[i], mips, pads, periods)
+        final = i == m and not all_active
+        side_i, node, _, unres = descend_sides(
+            par, None, E=E, level=li, n_out=par.shape[0] * E,
+            cls=cls_levels[i], active=active if final else None,
+            act_span=1 if final else 0, **geo)
         sides.append(side_i)
         nodes.append(node)
-        if i < m:
-            unres = side_i == 0
-        else:
-            if all_active:
-                ids = node[side_i == 0]
-            else:
-                ok = active[node >> (2 * subdiv), node & (M - 1)]
-                ids = node[ok & (side_i == 0)]
+        if i == m:
+            ids = node[unres]
             routes.count("count_sync")
     K = int(ids.shape[0])
 
-    sv_t = ids // M
-    sv_m = ids % M
-    bu, bv, bd = bary_cols(sv_m, subdiv)
-    tri6 = tri6_of(uv_flat, sv_t)
-    ar = torch.arange(K, dtype=torch.int64, device=device)
-    slots, padMs = [], []
-    for mi, (w, h) in enumerate(mips):
-        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
-        x0, y0 = wrap_origin(x0, y0, periods[mi])
-        tile = tile_of(x0.to(torch.int64), y0.to(torch.int64), pads[mi],
-                       ntxs[mi])
-        if K == 0:
-            slots.append(ar)
-            padMs.append(0)
-            continue
-        # stable tile sort; each tile group starts at a multiple of B
-        st, order = torch.sort(tile, stable=True)
-        is_start = torch.ones(K, dtype=torch.bool, device=device)
-        is_start[1:] = st[1:] != st[:-1]
-        start_pos = torch.cummax(torch.where(is_start, ar, 0), 0).values
-        rank = ar - start_pos
-        start_prev = torch.zeros_like(start_pos)
-        start_prev[1:] = start_pos[:-1]
-        prev_size = ar - start_prev
-        inc = torch.where(is_start & (ar > 0),
-                          ((prev_size + B - 1) // B) * B, 0)
-        offsets = torch.cumsum(inc, 0)
-        slot = torch.empty_like(ar)
-        slot[order] = offsets + rank
-        slots.append(slot)
-        padMs.append(int((offsets[-1] + ((rank[-1] + B) // B) * B).item()))
+    keys = tile_keys(ids, None, subdiv=subdiv, uv_flat=uv_flat, mips=mips,
+                     pads=pads, ntxs=ntxs, periods=periods)
+    if K == 0:
+        return {"sides": sides, "nodes": nodes, "ids": ids, "Cs": Cs,
+                "K": K, "slots": list(keys.to(torch.int64)),
+                "padMs": [0] * len(mips)}
+    # stable tile sort; each tile group starts at a multiple of B
+    st, order = torch.sort(keys, dim=1, stable=True)
+    slot, padM, _ = tile_slots(st, order, ids, [0] * len(mips))
+    padMs = []
+    for mi in range(len(mips)):
+        padMs.append(int(padM[mi].item()))
         routes.count("count_sync")
     return {"sides": sides, "nodes": nodes, "ids": ids, "Cs": Cs, "K": K,
-            "slots": slots, "padMs": padMs}
+            "slots": list(slot), "padMs": padMs}
 
 
 def slot_stream(uv_flat, ids, slot, padM, *, subdiv, w, h, pad, ntx,
@@ -214,27 +163,11 @@ def slot_stream(uv_flat, ids, slot, padM, *, subdiv, w, h, pad, ntx,
     """The exact stage's input: (block_tile (nblk,) int32, ids_slot
     (nblk, B) int32) with survivor k's id at slot[k] and -1 elsewhere.
     Tile groups are B-aligned, so each block's first slot holds a
-    survivor, whose tile is the block's."""
-    device = ids.device
-    nblk = padM // B
-    ids_slot = torch.full((padM,), -1, dtype=torch.int32, device=device)
-    ids_slot[slot] = ids.to(torch.int32)
-    ids_slot = ids_slot.reshape(nblk, B)
-    return block_tiles(uv_flat, ids_slot, subdiv=subdiv, w=w, h=h, pad=pad,
-                       ntx=ntx, period=period), ids_slot
-
-
-def block_tiles(uv_flat, ids_slot, *, subdiv, w, h, pad, ntx, period):
-    """(nblk,) int32 tile of each block of a slot stream: the tile of its
-    first slot's survivor, 0 for an empty block."""
-    M = get_num_micro_triangles(subdiv)
-    first = ids_slot[:, 0].to(torch.int64)
-    fb = torch.clamp_min(first, 0)
-    fbu, fbv, fbd = bary_cols(fb % M, subdiv)
-    fx0, fy0 = window_origin(tri6_of(uv_flat, fb // M), fbu, fbv, fbd, w, h)
-    fx0, fy0 = wrap_origin(fx0, fy0, period)
-    return torch.where(first >= 0, tile_of(fx0, fy0, pad, ntx),
-                       0).to(torch.int32)
+    survivor, whose tile (`tile_keys`) is the block's (`chain.slot_stream`,
+    kernel C's discovery form)."""
+    keys = tile_keys(ids, None, subdiv=subdiv, uv_flat=uv_flat,
+                     mips=[(w, h)], pads=[pad], ntxs=[ntx], periods=[period])
+    return chain_slot_stream(ids, slot, keys[0], padM // B)
 
 
 def stage_c_mip(planeP, uv_flat, ccw, ids, slot, padM, *, subdiv, w, h,
@@ -308,12 +241,6 @@ def merge_counts(mip_counts, fmt, promotion, cutoff_gt, cutoff_le):
 # the capacity form (speculative path)
 # ---------------------------------------------------------------------------
 
-#: tile key of an invalid survivor lane (sorts after every real tile) and
-#: the slot of one (past every block capacity): twophase's values
-INVALID_TILE = 0x7FFFFF00
-SENTINEL = 0x7FFFFF00
-
-
 def compact_scan(mask, payload, cap: int):
     """payload[mask] in scan order, in `cap` lanes: (compacted (cap,),
     count, a 0-d int64 tensor).  Lanes past the count hold 0; a count
@@ -327,35 +254,32 @@ def compact_scan(mask, payload, cap: int):
 
 
 def stage_ab_spec(cls_levels, uv_flat, active, *, subdiv, levels, caps,
-                  K_cap, mips, pads, ntxs, periods, all_active):
+                  K_cap, mips, pads, ntxs, periods, all_active, nblks=None):
     """stage_ab at capacities: caps[i-1] parent lanes at level i, K_cap
     survivor lanes; `_stageAB`'s program (the step-1 tail included).
+    Each level is one `descend_sides` call that reads the compacted
+    parents' count on the device.
 
     Returns a dict: sides (per level, int8 over the level's lanes),
     nodes (per level after 0: (flat ids, valid)), ids (K_cap,) int64
     and kvalid (K_cap,) bool, slots (per mip, (K_cap,) int64, SENTINEL
-    on invalid lanes) and meta, int32 [C_1..C_m, K, flag, padM per mip]
-    on the device: the true counts, flag 1 where a count passed its
-    capacity (the lanes past it are dropped).  Nothing is read on the
-    host."""
+    on invalid lanes), streams (per mip, the exact stage's (block_tile,
+    ids_slot) at nblks[mip] blocks; nblks None: no streams) and meta,
+    int32 [C_1..C_m, K, flag, padM per mip] on the device: the true
+    counts, flag 1 where a count passed its capacity (the lanes past it
+    are dropped).  Nothing is read on the host."""
     device = uv_flat.device
     T = uv_flat.shape[0]
     M = get_num_micro_triangles(subdiv)
     m = len(levels) - 1
     N0 = 4 ** levels[0]
-    span0 = M // N0
     skip = _skip_final_p(levels, all_active)
+    geo = _geo(uv_flat, mips, pads, periods)
 
-    node = torch.arange(T * N0, dtype=torch.int64, device=device)
-    side0 = sides_for(node & (N0 - 1), node >> (2 * levels[0]), levels[0],
-                      uv_flat, cls_levels[0], mips, pads, periods)
+    side0, node, _, unres = descend_sides(
+        None, None, E=N0, level=levels[0], n_out=T * N0, cls=cls_levels[0],
+        active=active, act_span=0 if all_active else M // N0, **geo)
     sides = [side0]
-    if all_active:
-        unres = side0 == 0
-    else:
-        gactive = active.reshape(T, N0, span0).any(dim=2).reshape(-1)
-        unres = (side0 == 0) & gactive
-
     flag = torch.zeros((), dtype=torch.int64, device=device)
     metas, nodes = [], []
     for i in range(1, m + 1):
@@ -363,96 +287,59 @@ def stage_ab_spec(cls_levels, uv_flat, active, *, subdiv, levels, caps,
         E = 4 ** (li - levels[i - 1])
         cap = caps[i - 1]
         par, Ci = compact_scan(unres, node, cap)
-        pvalid = torch.arange(cap, device=device) < torch.clamp_max(Ci, cap)
         flag = torch.maximum(flag, (Ci > cap).to(torch.int64))
         metas.append(Ci)
-        jj = torch.arange(E, dtype=torch.int64, device=device)
-        node = (par[:, None] * E + jj[None, :]).reshape(-1)
-        valid = pvalid[:, None].expand(cap, E).reshape(-1)
         if i == m and skip:
             # step-1 tail: the expanded children (a prefix, since `par`
             # is compacted) are the survivors, in scan order
+            _, ids, kvalid, _ = descend_sides(
+                par, Ci, E=E, level=li, n_out=K_cap, cls=None, test=False,
+                **geo)
             K = torch.clamp_max(Ci, cap) * E
-            if cap * E >= K_cap:
-                ids = node[:K_cap]
-            else:
-                ids = torch.cat([node, torch.zeros(
-                    K_cap - cap * E, dtype=torch.int64, device=device)])
-            kvalid = (torch.arange(K_cap, device=device)
-                      < torch.clamp_max(K, K_cap))
             flag = torch.maximum(flag, (Ci * E > K_cap).to(torch.int64))
             break
-        side_i = sides_for(node & (4 ** li - 1), node >> (2 * li), li,
-                           uv_flat, cls_levels[i], mips, pads, periods)
+        final = i == m and not all_active
+        side_i, node, valid, unres = descend_sides(
+            par, Ci, E=E, level=li, n_out=cap * E, cls=cls_levels[i],
+            active=active if final else None, act_span=1 if final else 0,
+            **geo)
         sides.append(side_i)
         nodes.append((node, valid))
-        if i < m:
-            unres = valid & (side_i == 0)
-        else:
-            surv = valid & (side_i == 0)
-            if not all_active:
-                surv = surv & active[node >> (2 * subdiv), node & (M - 1)]
-            ids, K = compact_scan(surv, node, K_cap)
+        if i == m:
+            ids, K = compact_scan(unres, node, K_cap)
             kvalid = (torch.arange(K_cap, device=device)
                       < torch.clamp_max(K, K_cap))
             flag = torch.maximum(flag, (K > K_cap).to(torch.int64))
 
-    sv_t = ids // M
-    sv_m = ids % M
-    bu, bv, bd = bary_cols(sv_m, subdiv)
-    tri6 = tri6_of(uv_flat, sv_t)
-    ar = torch.arange(K_cap, dtype=torch.int64, device=device)
-    metas += [K, flag]
-    slots = []
-    for mi, (w, h) in enumerate(mips):
-        x0, y0 = window_origin(tri6, bu, bv, bd, w, h)
-        x0, y0 = wrap_origin(x0, y0, periods[mi])
-        tile = tile_of(x0.to(torch.int64), y0.to(torch.int64), pads[mi],
-                       ntxs[mi])
-        tile = torch.where(kvalid, tile, INVALID_TILE)
-        # stable tile sort (invalid lanes last); each group starts at a
-        # multiple of B
-        st, order = torch.sort(tile, stable=True)
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=device),
-                              st[1:] != st[:-1]])
-        start_pos = torch.cummax(torch.where(is_start, ar, 0), 0).values
-        rank = ar - start_pos
-        start_prev = torch.cat([torch.zeros(1, dtype=torch.int64,
-                                            device=device), start_pos[:-1]])
-        inc = torch.where(is_start & (ar > 0),
-                          ((ar - start_prev + B - 1) // B) * B, 0)
-        offsets = torch.cumsum(inc, 0)
-        valid_el = st != INVALID_TILE
-        slot_sorted = torch.where(valid_el, offsets + rank, SENTINEL)
-        slots.append(torch.empty_like(ar).scatter_(0, order, slot_sorted))
-        metas.append(torch.where(valid_el, offsets + ((rank + B) // B) * B,
-                                 0).max())
+    keys = tile_keys(ids, kvalid, subdiv=subdiv, uv_flat=uv_flat, mips=mips,
+                     pads=pads, ntxs=ntxs, periods=periods)
+    # stable tile sort (invalid lanes last); each group starts at a
+    # multiple of B
+    st, order = torch.sort(keys, dim=1, stable=True)
+    slot, padM, streams = tile_slots(
+        st, order, ids, nblks if nblks is not None else [0] * len(mips))
+    meta = torch.cat([torch.stack(metas + [K, flag]), padM])
     return {"sides": sides, "nodes": nodes, "ids": ids, "kvalid": kvalid,
-            "slots": slots, "meta": torch.stack(metas).to(torch.int32)}
+            "slots": list(slot), "streams": streams,
+            "meta": meta.to(torch.int32)}
 
 
-def stage_c_spec(planeP, uv_flat, ccw, ids, kvalid, slot, nblk, *, subdiv,
-                 w, h, pad, ntx, H, W, rcp, alpha_cutoff, period=None,
+def stage_c_spec(planeP, uv_flat, ccw, kvalid, slot, stream, *, subdiv, w,
+                 h, pad, ntx, H, W, rcp, alpha_cutoff, period=None,
                  exact=None):
-    """Exact-stage counts of one mip at `nblk` blocks: the slot stream
-    of the valid survivors whose slot fits (the rest go to a dump lane),
-    the exact stage (`exact_counts`) over every block, empty ones
-    included, and (above, below) int32 (K_cap,) gathered back into
-    survivor order, 0 on the lanes left out."""
-    padM = nblk * B
-    ok = kvalid & (slot < padM)
-    tgt = torch.where(ok, slot, padM)
-    ids_slot = torch.full((padM + 1,), -1, dtype=torch.int32,
-                          device=ids.device)
-    ids_slot = ids_slot.scatter_(0, tgt, ids.to(torch.int32))[:padM]
-    ids_slot = ids_slot.reshape(nblk, B)
-    block_tile = block_tiles(uv_flat, ids_slot, subdiv=subdiv, w=w, h=h,
-                             pad=pad, ntx=ntx, period=period)
+    """Exact-stage counts of one mip on its slot stream (block_tile,
+    ids_slot) from stage_ab_spec: the exact stage (`exact_counts`) over
+    every block, empty ones included, and (above, below) int32 (K_cap,)
+    gathered back into survivor order, 0 on the lanes the stream left
+    out (invalid, or slot past the stream)."""
+    block_tile, ids_slot = stream
+    padM = ids_slot.numel()
     above, below = exact_counts(
         planeP, block_tile, ids_slot, uv_flat, ccw, subdiv=subdiv, pad=pad,
         ntx=ntx, size=(w, h), period=period, H=H, W=W, rcp=rcp,
         alpha_cutoff=alpha_cutoff, exact=exact)
-    safe = torch.clamp_max(tgt, padM - 1)
+    ok = kvalid & (slot < padM)
+    safe = torch.clamp_max(torch.where(ok, slot, padM), padM - 1)
     return (torch.where(ok, above.reshape(-1)[safe], 0),
             torch.where(ok, below.reshape(-1)[safe], 0))
 
@@ -512,12 +399,12 @@ def spec_chain(cls_levels, planes, uv_flat, ccw, active, *, subdiv, levels,
     res = stage_ab_spec(cls_levels, uv_flat, active, subdiv=subdiv,
                         levels=levels, caps=caps, K_cap=K_cap, mips=mips,
                         pads=pads, ntxs=ntxs, periods=periods,
-                        all_active=all_active)
+                        all_active=all_active, nblks=nblks)
     mip_counts = []
     for mi, (w, h) in enumerate(mips):
         mip_counts.append(stage_c_spec(
-            planes[mi], uv_flat, ccw, res["ids"], res["kvalid"],
-            res["slots"][mi], nblks[mi], subdiv=subdiv, w=w, h=h,
+            planes[mi], uv_flat, ccw, res["kvalid"], res["slots"][mi],
+            res["streams"][mi], subdiv=subdiv, w=w, h=h,
             pad=pads[mi], ntx=ntxs[mi], H=HWs[mi][0], W=HWs[mi][1],
             rcp=rcps[mi], alpha_cutoff=alpha_cutoff, period=periods[mi],
             exact=exact))

@@ -8,7 +8,11 @@ and ComputeOnly) against the dispatch on the CPU, and the mesh bake
 launches from several threads all counted, and the library surface
 (`Baker`, the CLI's bake) on the card against the CPU, and a batch's
 capacity chain as a CUDA graph (its replays against the eager chain on
-the CPU and the discovery path, also from several threads at once).
+the CPU and the discovery path, also from several threads at once), and
+the chain's descent and tile-slot kernels (`kernels.chain`) against
+their plain versions on every call of a batch's discovery path, its
+capacity chain and a forced overflow, with their launch counts, their
+input checks and their build and launch errors.
 The port's inputs are built through convert from the same numpy arrays
 as the JAX package's.
 
@@ -29,7 +33,7 @@ from omm_tpu import engine  # noqa: E402
 from omm_tpu_torch import batch, convert, host  # noqa: E402
 from omm_tpu_torch import engine as tengine  # noqa: E402
 from omm_tpu_torch import types as ttypes  # noqa: E402
-from omm_tpu_torch.kernels import exact  # noqa: E402
+from omm_tpu_torch.kernels import build, chain, exact  # noqa: E402
 from omm_tpu_torch.twophase import slot_stream  # noqa: E402
 
 from fixtures import sine_fp32, sine_unorm8, standard_circle  # noqa: E402
@@ -510,3 +514,132 @@ def test_graph_replays_from_threads(cuda):
     pc = ot.pipeline_counts()
     assert pc["graph_replay"] == 48
     assert counts["exact_classify"] == 48
+
+
+# ---------------------------------------------------------------------------
+# the capacity chain's kernels
+# ---------------------------------------------------------------------------
+
+def _chain_job(case, cuda, partial):
+    """A batch of a CASES entry on the card, fresh or partial (a third
+    of each item's micro-triangles already resolved)."""
+    mk_tex, cfg, mk_tris, subdiv = CASES[case]
+    tex, tris = mk_tex(), mk_tris()
+    M = 4 ** subdiv
+    items = [(t, None) for t in tris]
+    if partial:
+        items = []
+        for k, t in enumerate(tris):
+            st = np.full(M, 3, np.uint8)
+            st[k % 3::3] = 0
+            items.append((t, st))
+    pre = batch.precompute(tex, tris, subdiv,
+                           host._group_level(tex, tris, subdiv))
+    return batch._Batch(tex, cfg, items, subdiv, list(range(len(items))),
+                        [None] * len(items), not partial, pre, cuda, None)
+
+
+@pytest.mark.parametrize("partial", [False, True],
+                         ids=["fresh", "partial"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_chain_kernels_match_plain(case, partial, cuda):
+    """Every call of the descent and tile-slot kernels in a batch's
+    discovery path, its capacity chain at the recorded caps and at an
+    eighth of them (every count past its capacity): each kernel's result
+    equals its plain version's on the same inputs, on every lane; every
+    launch counts; the overflow sets the payload's flag."""
+    job = _chain_job(case, cuda, partial)
+    calls = []
+    ot.reset_launches()
+    with chain.recording(calls):
+        batch._run_batch(job)
+        entry = job.texture._omm_torch_caps[job.cap_key]
+        inputs = [t.to(cuda) for t in job.host_inputs()]
+        batch.spec_fn(job, entry)(*inputs)
+        small = (tuple(max(c // 8, 1) for c in entry[0]),
+                 max(entry[1] // 8, 1), tuple(max(n // 8, 1)
+                                              for n in entry[2]))
+        pay = batch.spec_fn(job, small)(*inputs)
+    torch.cuda.synchronize()
+    counts = ot.launches()
+    names = set()
+    for kernel, name, fn, plain, args, kw, out in calls:
+        assert chain.result_diff(out, plain(*args, **kw)) == 0, name
+        names.add(name)
+    assert names == {"descend_sides", "tile_keys", "tile_slots",
+                     "slot_stream"}
+    for k in ("descend_sides", "tile_keys", "tile_slots"):
+        assert counts[k] == sum(c[0] == k for c in calls) > 0
+    m = len(job.bp["levels"]) - 1
+    nm = len(job.bp["mips"])
+    assert int(pay[:4 * (m + 2 + nm)].view(torch.int32)[m + 1]) == 1
+
+
+def test_graph_replay_counts_chain_launches(cuda):
+    """A replayed batch graph counts the chain kernels it captured: one
+    descend_sides launch per descent level, one tile_keys and one
+    tile_slots launch per batch."""
+    _SPEC_TEX.pop("clamp", None)
+    batch._run_batch(_spec_job("clamp", cuda))
+    batch._enqueue_spec(_spec_job("clamp", cuda))[2].synchronize()
+    ot.reset_launches()
+    job = _spec_job("clamp", cuda)
+    batch._enqueue_spec(job)[2].synchronize()
+    counts = ot.launches()
+    assert ot.pipeline_counts()["graph_replay"] == 1
+    assert counts["descend_sides"] == len(job.bp["levels"])
+    assert counts["tile_keys"] == counts["tile_slots"] == 1
+    assert counts["exact_classify"] == job.texture.mip_count
+
+
+def test_chain_wrappers_reject_mixed_devices(cuda):
+    """Each chain wrapper raises on tensors split between the CPU and the
+    card and on a bad dtype on the card, and launches nothing."""
+    uv = torch.zeros((2, 6), device=cuda)
+    cls = [torch.zeros((8, 8), dtype=torch.int8)]
+    kw = dict(E=4, level=1, n_out=8, mips=[(8, 8)], pads=[1],
+              periods=[None])
+    ot.reset_launches()
+    with pytest.raises(ValueError):
+        chain.descend_sides(None, None, uv_flat=uv, cls=cls, **kw)
+    with pytest.raises(ValueError):
+        chain.descend_sides(None, None, uv_flat=uv.double(),
+                            cls=[c.to(cuda) for c in cls], **kw)
+    ids = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        chain.tile_keys(ids, None, subdiv=2, uv_flat=uv, mips=[(8, 8)],
+                        pads=[1], ntxs=[1], periods=[None])
+    st = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        chain.tile_slots(st, torch.zeros((1, 4), dtype=torch.int64), ids,
+                         [1])
+    with pytest.raises(ValueError):
+        chain.slot_stream(ids.to(cuda), ids.to(cuda), ids.to(cuda), 1)
+    assert all(ot.launches()[k] == 0
+               for k in ("descend_sides", "tile_keys", "tile_slots"))
+
+
+def test_chain_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel's C entry refuses (more mips than it takes)
+    raises RuntimeError; the plain version does not stand in."""
+    monkeypatch.setattr(chain, "MAX_MIPS", 17)
+    mips = [(8, 8)] * 17
+    uv = torch.zeros((1, 6), device=cuda)
+    cls = [torch.zeros((8, 8), dtype=torch.int8, device=cuda)] * 17
+    with pytest.raises(RuntimeError, match="descend_sides launch failed"):
+        chain.descend_sides(None, None, E=4, level=1, n_out=4, uv_flat=uv,
+                            cls=cls, mips=mips, pads=[1] * 17,
+                            periods=[None] * 17)
+
+
+def test_chain_build_error_raises(cuda, monkeypatch):
+    """A chain library that does not build raises from the wrapper; the
+    plain version does not stand in."""
+    monkeypatch.delitem(build._LIBS, "omm_chain_cuda", raising=False)
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS + ["--no-such-nvcc-flag"])
+    ids = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(RuntimeError, match="failed"):
+        chain.tile_keys(ids, None, subdiv=2,
+                        uv_flat=torch.zeros((1, 6), device=cuda),
+                        mips=[(8, 8)], pads=[1], ntxs=[1], periods=[None])

@@ -1,6 +1,7 @@
 """Where the time of an omm_tpu_torch bake goes, on one CUDA card.
 
     python tools/profile_torch_bake.py [--workload W] [--trace PATH]
+                                       [--package-root DIR]
     python tools/profile_torch_bake.py --exact-vs DIR [DIR ...] [--rounds N]
 
 Runs one of chip_smoke.py's workloads on cuda:0: through
@@ -20,7 +21,11 @@ batches (omm.drain), the work items per route, the pipeline's counts
 (batches per path, graph captures and replays, count syncs), the kernel and
 graph launch calls, the host operations with the most self CPU time,
 device time per kernel, and the device's busy and idle shares of the
-bake's wall time.  With --trace, the Chrome trace is written to PATH.
+bake's wall time, and the device kernels of the bake (their launches
+by name for the hand-written kernels).  With --trace, the Chrome trace
+is written to PATH.  With --package-root DIR the package is imported
+from DIR (an unpacked checkout, such as a parent commit's), with this
+checkout's workloads and measurement.
 
 With --exact-vs it instead times the exact kernels built from each DIR
 (a csrc/ directory with an exact_classify.cu of the same launch
@@ -48,15 +53,28 @@ def main():
                     help="time the exact kernels built from each DIR "
                     "against this one instead of profiling a bake")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--package-root", default=ROOT)
     args = ap.parse_args()
     if args.exact_vs:
         return compare_exact(args.exact_vs, args.rounds)
+    import importlib.util
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke
+    pkg_root = os.path.abspath(args.package_root)
+    sys.path.insert(0, pkg_root)
+    # this checkout's workloads and measurement, whatever the package's
+    # root
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     import omm_tpu_torch as ot
+    if not os.path.abspath(ot.__file__).startswith(pkg_root + os.sep):
+        raise SystemExit(f"omm_tpu_torch came from {ot.__file__}, not "
+                         f"{pkg_root}")
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -109,6 +127,15 @@ def main():
     for t, k, n in rows:
         if "exact_classify" in k:
             print(f"exact kernel: {t / 1e3:.4f} ms device in {n} launches")
+    kernels, moves, by_name = chip_smoke.device_kernels(prof)
+    print(f"device kernels per bake: {kernels} (and {moves} device copies "
+          f"and sets); package {os.path.relpath(pkg_root, ROOT)}")
+    for tag in ("exact_classify", "descend_kernel", "keys_kernel",
+                "slots_"):
+        hit = [v for k, v in by_name.items() if tag in k]
+        if hit:
+            print(f"  {tag}: {sum(v[0] for v in hit)} launches, "
+                  f"{sum(v[1] for v in hit):.4f} ms device")
     print(f"device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} ms wall: "
           f"busy share {busy_ms / 1e3 / wall:.4f}, idle share "
           f"{1 - busy_ms / 1e3 / wall:.4f}")
