@@ -1,0 +1,7 @@
+"""torch.cuda.max_memory_allocated() over the window, after
+reset_peak_memory_stats() at its start, in MiB."""
+SOURCE = "host_clock"
+
+
+def read(run):
+    return run["peak_bytes"] / 2 ** 20 if run["peak_bytes"] else None
