@@ -74,8 +74,8 @@ def launches() -> dict:
 
 def pipeline_counts() -> dict:
     """The two-phase engine's batches per path, CUDA graphs captured and
-    replayed, and host count-syncs in this process, by name (see
-    `routes.PIPELINE`)."""
+    replayed, host count-syncs and pinned host tensors made in this
+    process, by name (see `routes.PIPELINE`)."""
     with routes.LOCK:
         return {k: routes.COUNTS[k] for k in routes.PIPELINE}
 

@@ -20,7 +20,6 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
-from torch.profiler import record_function
 
 from . import classify, engine, geom, host, native
 from .batch import classify_work_items_batches
@@ -28,6 +27,7 @@ from .bit_tricks import xy_to_morton
 from .log import Logger
 from .mt19937 import MT19937
 from .planes import check_device
+from .spans import span
 from .texture import Texture, get_tex_coord
 from .types import (BakeError, BakeFlags, BakeInputDesc, BakeResult, Format,
                     IndexFormat, MicromapDesc, OpacityState, Result,
@@ -365,51 +365,60 @@ DISABLED_PRIMITIVE = 0xE
 def setup_work_items(desc: BakeInputDesc, opts: Options,
                      log=None) -> list[WorkItem]:
     tex: Texture = desc.texture
-    tris = geom.triangles_from_indices(
-        np.asarray(desc.index_buffer)[:desc.index_count], desc.tex_coords,
-        desc.tex_coord_format, desc.tex_coord_stride_in_bytes)
     tri_count = desc.index_count // 3
-    tris = tris[:tri_count]
+    with span("omm.setup.triangles"):
+        tris = geom.triangles_from_indices(
+            np.asarray(desc.index_buffer)[:desc.index_count],
+            desc.tex_coords, desc.tex_coord_format,
+            desc.tex_coord_stride_in_bytes)
+        tris = tris[:tri_count]
+        # batched validity scan (identical per-element decisions to the
+        # scalar geom calls; the per-tri python loop profiled at ~55 us/tri)
+        if tri_count:
+            inv_arr = np.asarray(geom.is_invalid(tris)).reshape(tri_count)
+            if opts.disable_level_line_intersection:
+                inv_arr = inv_arr | np.asarray(
+                    geom.is_degenerate(tris)).reshape(tri_count)
 
     items: list[WorkItem] = []
     key_to_item: dict = {}
     tex_size = tex.size(0)
     num_disabled = 0
 
-    # batched validity scan (identical per-element decisions to the
-    # scalar geom calls; the per-tri python loop profiled at ~55 us/tri)
-    if tri_count:
-        inv_arr = np.asarray(geom.is_invalid(tris)).reshape(tri_count)
-        if opts.disable_level_line_intersection:
-            inv_arr = inv_arr | np.asarray(
-                geom.is_degenerate(tris)).reshape(tri_count)
-    # constant subdivision level unless per-tri levels / dynamic scale
-    const_subdiv = (desc.subdivision_levels is None
-                    and not desc.dynamic_subdivision_scale > 0)
-
-    for i in range(tri_count):
-        uv_tri = tris[i]
-        subdiv = desc.max_subdivision_level if const_subdiv \
-            else get_subdivision_level(desc, opts, i, uv_tri, tex_size)
-        disabled = subdiv == DISABLED_PRIMITIVE
-        invalid = bool(inv_arr[i])
-        if disabled or invalid:
-            num_disabled += 1
-            continue  # resolved to unresolvedTriState at serialize time
-        fmt = desc.format
-        if desc.formats is not None and int(desc.formats[i]) != int(Format.INVALID):
-            fmt = Format(int(desc.formats[i]))
-        key = (uv_tri.tobytes(), subdiv, int(fmt))
-        hit = key_to_item.get(key)
-        if hit is None or opts.disable_duplicate_detection:
-            if subdiv > MAX_SUBDIV_LEVEL:
-                raise BakeError(Result.INVALID_ARGUMENT,
-                                "subdivisionLevel exceeds kMaxSubdivLevel")
-            key_to_item[key] = len(items)
-            items.append(WorkItem(subdivision_level=subdiv, vm_format=fmt,
-                                  uv_tri=uv_tri, primitive_indices=[i]))
+    # every triangle's level first, then the skips, formats and keys: two
+    # passes, so that a trace tells the level heuristic from the dedup
+    with span("omm.setup.levels"):
+        # constant subdivision level unless per-tri levels / dynamic scale
+        if (desc.subdivision_levels is None
+                and not desc.dynamic_subdivision_scale > 0):
+            subdivs = [desc.max_subdivision_level] * tri_count
         else:
-            items[hit].primitive_indices.append(i)
+            subdivs = [get_subdivision_level(desc, opts, i, tris[i], tex_size)
+                       for i in range(tri_count)]
+
+    with span("omm.setup.dedup"):
+        for i, subdiv in enumerate(subdivs):
+            disabled = subdiv == DISABLED_PRIMITIVE
+            invalid = bool(inv_arr[i])
+            if disabled or invalid:
+                num_disabled += 1
+                continue  # resolved to unresolvedTriState at serialize time
+            uv_tri = tris[i]
+            fmt = desc.format
+            if desc.formats is not None \
+                    and int(desc.formats[i]) != int(Format.INVALID):
+                fmt = Format(int(desc.formats[i]))
+            key = (uv_tri.tobytes(), subdiv, int(fmt))
+            hit = key_to_item.get(key)
+            if hit is None or opts.disable_duplicate_detection:
+                if subdiv > MAX_SUBDIV_LEVEL:
+                    raise BakeError(Result.INVALID_ARGUMENT,
+                                    "subdivisionLevel exceeds kMaxSubdivLevel")
+                key_to_item[key] = len(items)
+                items.append(WorkItem(subdivision_level=subdiv, vm_format=fmt,
+                                      uv_tri=uv_tri, primitive_indices=[i]))
+            else:
+                items[hit].primitive_indices.append(i)
 
     if opts.enable_validation and num_disabled != 0 and log is not None:
         from .log import special_index_name
@@ -937,33 +946,33 @@ def finalize_items(desc: BakeInputDesc, opts: Options,
     couple across ALL work items (dedup maps, the compress budget sort),
     so the exact bake farm replays this tail once over the gathered
     global item list (parallel/multihost.merge_exact)."""
-    # record_function labels split omm.finalize in torch.profiler traces
-    with record_function("omm.promote"):
+    # spans split omm.finalize in torch.profiler traces
+    with span("omm.promote"):
         promote_special_indices(desc, opts, items)
-    with record_function("omm.dedup_exact"):
+    with span("omm.dedup_exact"):
         deduplicate_exact(opts, items)
-    with record_function("omm.dedup_near"):
+    with span("omm.dedup_near"):
         changed = deduplicate_similar_lsh(desc, opts, items, iterations=3)
         changed |= deduplicate_similar_brute_force(opts, items)
-    with record_function("omm.promote"):
+    with span("omm.promote"):
         promote_special_indices(desc, opts, items)
-    with record_function("omm.compress"):
+    with span("omm.compress"):
         changed |= compress(desc, opts, items)
     if changed:
         # only near-duplicate merges or downsampling can mint new exact
         # duplicates / uniform items; when none ran, the second dedup +
         # promotion passes are identities (the reference runs them
         # unconditionally, but they observably do nothing then)
-        with record_function("omm.dedup_exact"):
+        with span("omm.dedup_exact"):
             deduplicate_exact(opts, items)
-        with record_function("omm.promote"):
+        with span("omm.promote"):
             promote_special_indices(desc, opts, items)
 
-    with record_function("omm.histograms"):
+    with span("omm.histograms"):
         arr_hist, idx_hist = create_usage_histograms(items)
-    with record_function("omm.sort"):
+    with span("omm.sort"):
         order = micromap_spatial_sort(items)
-    with record_function("omm.serialize"):
+    with span("omm.serialize"):
         return serialize_result(desc, items, arr_hist, idx_hist, order,
                                 allocator=allocator)
 
@@ -1011,9 +1020,10 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
             "EnableAABBTesting requires DisableLevelLineIntersection")
     sel = (np.ones(len(items), bool) if sel is None
            else np.asarray(sel, bool).copy())
-    degen = (np.asarray(geom.is_degenerate(
-        np.stack([it.uv_tri for it in items]))).reshape(len(items))
-        if items else np.zeros(0, bool))
+    with span("omm.chunk"):
+        degen = (np.asarray(geom.is_degenerate(
+            np.stack([it.uv_tri for it in items]))).reshape(len(items))
+            if items else np.zeros(0, bool))
     linear_ll = (cfg.filter == TextureFilterMode.Linear
                  and not cfg.disable_level_line)
     nearest = cfg.filter == TextureFilterMode.Nearest
@@ -1022,7 +1032,7 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
         # sharded items skip every later pass: the engine's descent
         # resolves what the coarse pass would, and the exact stage the rest
         sel &= ~_classify_on_mesh(tex, cfg, items, sel & ~degen, mesh)
-    with record_function("omm.coarse"):
+    with span("omm.coarse"):
         for i in np.flatnonzero(sel):
             it = items[i]
             st = engine.resample_coarse_item(tex, cfg, it.uv_tri,
@@ -1042,23 +1052,25 @@ def classify_items(desc: BakeInputDesc, opts: Options, items: list,
                     items[i].states = st
 
     if linear_ll:
-        chunks, levels = [], []
-        for level, idxs in sorted(_by_level(items, sel & ~degen).items(),
-                                  reverse=True):
-            per_item = get_num_micro_triangles(level)
-            cs = split_tail_light(idxs,
-                                  [max(1, MAX_UTRI_PER_BATCH // per_item)])
-            chunks.extend(cs)
-            levels.extend([level] * len(cs))
-        batches = [[(items[i].uv_tri,
-                     None if getattr(items[i], "_fresh", False)
-                     else items[i].states) for i in c] for c in chunks]
+        with span("omm.chunk"):
+            chunks, levels = [], []
+            for level, idxs in sorted(_by_level(items, sel & ~degen).items(),
+                                      reverse=True):
+                per_item = get_num_micro_triangles(level)
+                cs = split_tail_light(
+                    idxs, [max(1, MAX_UTRI_PER_BATCH // per_item)])
+                chunks.extend(cs)
+                levels.extend([level] * len(cs))
+            batches = [[(items[i].uv_tri,
+                         None if getattr(items[i], "_fresh", False)
+                         else items[i].states) for i in c] for c in chunks]
         posts: list = []
         outs = classify_work_items_batches(tex, cfg, batches, levels,
                                            device=device, post_out=posts)
-        for c, res, pd in zip(chunks, outs, posts):
-            for bi, (i, st) in enumerate(zip(c, res)):
-                set_states(items[i], st, pd.get(bi))
+        with span("omm.set_states"):
+            for c, res, pd in zip(chunks, outs, posts):
+                for bi, (i, st) in enumerate(zip(c, res)):
+                    set_states(items[i], st, pd.get(bi))
     elif nearest:
         for level, idxs in _by_level(items, sel & ~degen).items():
             res = classify.classify_nearest_survivors_batch(
@@ -1146,11 +1158,13 @@ def bake(desc: BakeInputDesc, device="cuda", logger=None,
     if desc.texture is None:
         log.invalid_arg("[Invalid Argument] - ommCpuBakeInputDesc has no "
                         "texture set")
-    with record_function("omm.setup"):
-        validate_desc(desc, opts, log)
+    with span("omm.setup"):
+        with span("omm.setup.validate"):
+            validate_desc(desc, opts, log)
         items = setup_work_items(desc, opts, log)
-        validate_workload_size(desc, opts, items, log)
-    with record_function("omm.classify"):
+        with span("omm.setup.validate"):
+            validate_workload_size(desc, opts, items, log)
+    with span("omm.classify"):
         classify_items(desc, opts, items, device, mesh=mesh)
-    with record_function("omm.finalize"):
+    with span("omm.finalize"):
         return finalize_items(desc, opts, items, allocator=allocator)

@@ -49,9 +49,14 @@ chunked fetch concatenates the payloads on the enqueue thread; the port
 copies each payload on its own, so batch k drains as soon as its own
 enqueue has returned.  An error in an enqueue or a write-back reaches
 the caller; queued enqueues are cancelled and no thread is left
-running.  torch.profiler sees the enqueue thread's `omm.spec` and the
-pool's `omm.row_post` only with `profile_all_threads` set in its
-experimental config.
+running.  The calling thread's spans (`spans.span`) name each step:
+`omm.plan` (routing, the fast-path mask, the descent schedule and
+window maxima), `omm.class_planes` and `omm.submit` per batch,
+`omm.slow`, `omm.drain` per batch (the wait, the meta, the hand-off to
+the post pool), `omm.post_wait` (the write-backs and the pool's
+shutdown) and `omm.discovery`.  torch.profiler sees the enqueue
+thread's `omm.spec` and the pool's `omm.row_post` only with
+`profile_all_threads` set in its experimental config.
 
 Items outside the engine's fast path take the JAX package's slow routes
 (twophase `_classify_slow`) on the same device through
@@ -65,11 +70,11 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import engine, geom, graphs, host, native, planes, routes
 from .host import TILE
 from .planes import check_device
+from .spans import span
 from .twophase import (PackedStates, spec_chain, stage_ab, stage_c_mip,
                        stage_d)
 from .types import OpacityState, get_num_micro_triangles
@@ -176,9 +181,9 @@ class _Batch:
             self.active_np = np.stack(
                 [np.ones(self.M, bool) if items[i][1] is None
                  else items[i][1] == UO for i in fast])
-        # record_function labels name the stages in torch.profiler traces
+        # spans name the stages in torch.profiler traces
         # (the JAX engine's jax.named_scope labels)
-        with record_function("omm.class_planes"):
+        with span("omm.class_planes"):
             self.bp = batch_planes(texture, cfg, precomp, device)
         self.cap_key = (subdiv, tuple(self.bp["levels"]), self.T,
                         bool(all_active))
@@ -203,7 +208,7 @@ class _Batch:
             rows = [t for t, i in enumerate(self.fast)
                     if self.all_active or self.items[i][1] is None]
             if rows:
-                with record_function("omm.row_post"):
+                with span("omm.row_post"):
                     dig, uni = native.row_post_packed(
                         packed, self.M,
                         row_base=np.asarray(rows, np.int64) * (self.M // 4))
@@ -238,13 +243,13 @@ def _run_batch(job):
     if not job.all_active:
         active = torch.from_numpy(job.active_np).to(job.device)
     routes.count("discovery")
-    with record_function("omm.stage_ab"):
+    with span("omm.stage_ab"):
         res = run_stage_ab(bp, uv_flat, active, subdiv, job.all_active)
-    with record_function("omm.stage_c"):
+    with span("omm.stage_c"):
         mip_counts = [run_stage_c(bp, res, mi, uv_flat, ccw, subdiv, cfg,
                                   job.exact)
                       for mi in range(len(bp["mips"]))]
-    with record_function("omm.stage_d"):
+    with span("omm.stage_d"):
         packed = stage_d(res["sides"], res["nodes"], res["ids"], mip_counts,
                          T=job.T, subdiv=subdiv, levels=bp["levels"],
                          fmt=cfg.fmt, promotion=cfg.promotion,
@@ -303,7 +308,7 @@ def _enqueue_spec(job):
                              _graph_key(job), entry,
                              job.host_inputs(), chain)
         return entry, buf, ev
-    with record_function("omm.spec"):
+    with span("omm.spec"):
         return entry, chain(*job.host_inputs()), None
 
 
@@ -371,56 +376,57 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
     batch's rows reach the host, on either path.  The bake's promotion
     and exact dedup read these instead of unpacking each row.  Without
     it no post pass runs."""
-    device = check_device(device)
-    subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
-               else [int(s) for s in subdiv])
-    if len(subdivs) != len(batches):
-        raise ValueError("one subdivision level per batch expected")
+    with span("omm.plan"):
+        device = check_device(device)
+        subdivs = ([int(subdiv)] * len(batches) if np.isscalar(subdiv)
+                   else [int(s) for s in subdiv])
+        if len(subdivs) != len(batches):
+            raise ValueError("one subdivision level per batch expected")
 
-    # route: fresh items and items with some UnknownOpaque left
-    routed = []
-    results = []
-    for items in batches:
-        out = [None] * len(items)
-        todo, mins = [], {}
-        for i, (uv, st) in enumerate(items):
-            if st is None:
-                mins[i] = UO
-                todo.append(i)
-                continue
-            mn = int(st.min())
-            mins[i] = mn
-            if mn == UO or int(st.max()) == UO:
-                todo.append(i)
-            else:
-                out[i] = st
-        routed.append((items, out, todo, mins))
-        results.append(out)
-
-    by_level: dict[int, list[int]] = {}
-    for bi, sd in enumerate(subdivs):
-        by_level.setdefault(sd, []).append(bi)
-    lgs = {}
-    for sd, bis in by_level.items():
-        uvs = [routed[bi][0][i][0] for bi in bis for i in routed[bi][2]]
-        lgs[sd] = host._group_level(texture, uvs, sd) if uvs else 1
-    fast_uvs: dict[int, list] = {sd: [] for sd in by_level}
-    fast_lists, slow = [], []
-    for (items, out, todo, mins), sd in zip(routed, subdivs):
-        fast = []
-        if todo:
-            mask = host._fast_path_mask(
-                texture, cfg, np.stack([items[i][0] for i in todo]), sd,
-                lgs[sd])
-            for k, i in enumerate(todo):
-                if mask[k]:
-                    fast.append(i)
+        # route: fresh items and items with some UnknownOpaque left
+        routed = []
+        results = []
+        for items in batches:
+            out = [None] * len(items)
+            todo, mins = [], {}
+            for i, (uv, st) in enumerate(items):
+                if st is None:
+                    mins[i] = UO
+                    todo.append(i)
+                    continue
+                mn = int(st.min())
+                mins[i] = mn
+                if mn == UO or int(st.max()) == UO:
+                    todo.append(i)
                 else:
-                    slow.append((items, out, i, sd))
-        fast_lists.append(fast)
-        fast_uvs[sd].extend(items[i][0] for i in fast)
-    precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
-                for sd, uvs in fast_uvs.items() if uvs}
+                    out[i] = st
+            routed.append((items, out, todo, mins))
+            results.append(out)
+
+        by_level: dict[int, list[int]] = {}
+        for bi, sd in enumerate(subdivs):
+            by_level.setdefault(sd, []).append(bi)
+        lgs = {}
+        for sd, bis in by_level.items():
+            uvs = [routed[bi][0][i][0] for bi in bis for i in routed[bi][2]]
+            lgs[sd] = host._group_level(texture, uvs, sd) if uvs else 1
+        fast_uvs: dict[int, list] = {sd: [] for sd in by_level}
+        fast_lists, slow = [], []
+        for (items, out, todo, mins), sd in zip(routed, subdivs):
+            fast = []
+            if todo:
+                mask = host._fast_path_mask(
+                    texture, cfg, np.stack([items[i][0] for i in todo]), sd,
+                    lgs[sd])
+                for k, i in enumerate(todo):
+                    if mask[k]:
+                        fast.append(i)
+                    else:
+                        slow.append((items, out, i, sd))
+            fast_lists.append(fast)
+            fast_uvs[sd].extend(items[i][0] for i in fast)
+        precomps = {sd: precompute(texture, uvs, sd, lgs[sd])
+                    for sd, uvs in fast_uvs.items() if uvs}
 
     # the threads of the module docstring: enqueue, slow items, drain,
     # discovery
@@ -441,35 +447,43 @@ def classify_work_items_batches(texture, cfg, batches, subdiv, *,
                              all(mins[i] == UO for i in fast), precomps[sd],
                              device, exact,
                              post=post if post_out is not None else None)
-                jobs.append((job, submit(_on_stream, stream, job)))
-        for items, out, i, sd in slow:
-            st = items[i][1]
-            if st is None:
-                st = np.full(get_num_micro_triangles(sd), UO, np.uint8)
-            out[i] = engine.resample_fine_item(texture, cfg, items[i][0], sd,
-                                               st, device)
+                with span("omm.submit"):
+                    jobs.append((job, submit(_on_stream, stream, job)))
+        if slow:
+            with span("omm.slow"):
+                for items, out, i, sd in slow:
+                    st = items[i][1]
+                    if st is None:
+                        st = np.full(get_num_micro_triangles(sd), UO,
+                                     np.uint8)
+                    out[i] = engine.resample_fine_item(
+                        texture, cfg, items[i][0], sd, st, device)
         pool = ThreadPoolExecutor(max_workers=POST_WORKERS,
                                   thread_name_prefix="omm-post")
         try:
             written = []
             for job, fut in jobs:
-                with record_function("omm.drain"):
+                with span("omm.drain"):
                     pending = fut.result()
                     rows = (None if pending is None
                             else _drain_spec(job, pending))
-                if rows is None:
-                    rerun.append(job)
-                else:
-                    written.append(pool.submit(job.write_back, rows))
-            for w in written:
-                w.result()
+                    if rows is None:
+                        rerun.append(job)
+                    else:
+                        written.append(pool.submit(job.write_back, rows))
+            with span("omm.post_wait"):
+                for w in written:
+                    w.result()
+                pool.shutdown(wait=True)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
     finally:
         if enq is not None:
             enq.shutdown(wait=True, cancel_futures=True)
-    for job in rerun:
-        _run_batch(job)
+    if rerun:
+        with span("omm.discovery"):
+            for job in rerun:
+                _run_batch(job)
     if post_out is not None:
         post_out.extend(posts)
     return results

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import bird, geom, routes
 from .levelline import (conservative_raster_mask, f32,
@@ -33,6 +32,7 @@ from .levelline import (conservative_raster_mask, f32,
                         make_tri_params)
 from .planes import check_device, tex_cache
 from .raster import conservative_line_cells_batch
+from .spans import span
 from .texture_torch import bilinear, get_tex_coord, load
 from .types import OpacityState, TextureAddressMode, get_num_micro_triangles
 
@@ -230,7 +230,7 @@ def classify_work_item(texture, cfg, uv_tri: np.ndarray, subdiv: int,
         return classify_linear_survivors(texture, cfg, uv_tri, subdiv,
                                          states, device)
     routes.count("dense")
-    with record_function("omm.dense"):
+    with span("omm.dense"):
         above, below = classify_item(texture, cfg, uv_tri, subdiv, device)
         final = final_states(cfg, above, below)
     out = states.copy()
@@ -247,7 +247,7 @@ def classify_linear_survivors_batch(texture, cfg, work, subdiv: int,
     stable (the JAX package's bounce); a sliver never does.  Profiler
     label omm.linear_survivors (a bounced item's omm.dense inside it)."""
     device = check_device(device)
-    with record_function("omm.linear_survivors"):
+    with span("omm.linear_survivors"):
         return _linear_survivors(texture, cfg, work, subdiv, device)
 
 
@@ -310,7 +310,7 @@ def classify_nearest_survivors_batch(texture, cfg, work, subdiv: int,
     (jax_classify.classify_nearest_survivors, item by item there).
     Profiler label omm.nearest_survivors."""
     device = check_device(device)
-    with record_function("omm.nearest_survivors"):
+    with span("omm.nearest_survivors"):
         return _nearest_survivors(texture, cfg, work, subdiv, device)
 
 
@@ -374,7 +374,7 @@ def classify_degenerate(texture, cfg, uv_tri: np.ndarray, subdiv: int,
     if sel.size == 0:
         return states
     routes.count("degenerate")
-    with record_function("omm.degenerate"):
+    with span("omm.degenerate"):
         return _degenerate_pass(texture, cfg, uv_tri, subdiv, states, sel,
                                 device)
 

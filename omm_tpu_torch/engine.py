@@ -16,13 +16,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import bird, classify, geom, routes
 from .classify import (border_alpha_of, final_states, raster_window,
                        row_blocks, sum_hw, tex_planes, window_hw)
 from .levelline import f32
 from .planes import check_device
+from .spans import span
 from .texture import Texture, gather_tex_coord4
 from .texture_torch import gather_tex_coord4 as gather4, load
 from .types import (Format, OpacityState, TextureAddressMode,
@@ -183,7 +183,7 @@ def resample_fine_item(texture: Texture, cfg: ResampleConfig,
     if sel.size == 0:
         return states
     routes.count("host_engine")
-    with record_function("omm.host_engine"):
+    with span("omm.host_engine"):
         muvs = bird.micro_triangle_uvs(uv_tri, sel.astype(np.uint32),
                                        subdiv)
         if cfg.filter == TextureFilterMode.Nearest:

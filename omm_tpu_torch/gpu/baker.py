@@ -38,7 +38,6 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
-from torch.profiler import record_function
 
 from .. import engine, geom, native
 from ..bake import (MAX_UTRI_PER_BATCH, compute_area_heuristic,
@@ -47,6 +46,7 @@ from ..bake import (MAX_UTRI_PER_BATCH, compute_area_heuristic,
                     WorkItem)
 from ..batch import classify_work_items_batches
 from ..planes import check_device
+from ..spans import span
 from ..stats import collect_stats
 from ..texture import Texture
 from ..types import (BakeError, BakeFlags, BakeInputDesc, Format,
@@ -577,7 +577,7 @@ class Pipeline:
         # DescPatch: promote uniform primitives to special indices
         # (omm_desc_patch.cs.hlsl:23-200).  Reading `states` unpacks an
         # engine item's packed rows.
-        with record_function("omm.desc_patch"):
+        with span("omm.desc_patch"):
             for it in items:
                 st = it.states
                 if not disable_special and bool((st == st[0]).all()):

@@ -27,11 +27,11 @@ from __future__ import annotations
 import threading
 
 import torch
-from torch.profiler import record_function
 
 from . import routes
 from .kernels import counts
 from .planes import tex_cache
+from .spans import span
 
 #: one capture at a time in the process (a capture syncs the device)
 _CAPTURE_LOCK = threading.Lock()
@@ -79,6 +79,7 @@ def _to_host(payload):
     """Start the payload's copy into pinned host memory on the current
     stream: (host tensor, event recorded after the copy)."""
     dst = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
+    routes.count("pinned_alloc")
     dst.copy_(payload, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record()
@@ -86,6 +87,7 @@ def _to_host(payload):
 
 
 def _copy_in(static, host_inputs):
+    routes.count("pinned_alloc", len(host_inputs))
     for dst, src in zip(static, host_inputs):
         dst.copy_(src.pin_memory(), non_blocking=True)
 
@@ -96,7 +98,7 @@ def run(texture, device, key, caps, host_inputs, chain):
     inputs.  Returns (pinned host payload, CUDA event): the payload is
     there once the event has completed."""
     device = torch.device(device)
-    with torch.cuda.device(device), record_function("omm.spec"):
+    with torch.cuda.device(device), span("omm.spec"):
         st = _state(texture, device)
         with st.lock:
             entry = st.graphs.get(key)

@@ -13,7 +13,9 @@ discovery path, as the batches without a caps entry do ("discovery");
 the CUDA graphs captured and replayed for the chain; and every host
 read of a device count ("count_sync": on the discovery path one per
 descent level and one per mip, on the capacity chain the payload's
-meta, one per batch).  Mesh slots count from worker threads, so every
+meta, one per batch); and every pinned host tensor made for a graph's
+copies ("pinned_alloc": each static input copied in, each payload
+copied out).  Mesh slots count from worker threads, so every
 process-wide count, these and the kernels' launch counts, is read and
 written under LOCK.
 """
@@ -40,6 +42,7 @@ PIPELINE = (
     "graph_capture",  # CUDA graphs captured (graphs.run)
     "graph_replay",   # CUDA graph replays
     "count_sync",     # host reads of a device count
+    "pinned_alloc",   # pinned host tensors made (graphs: inputs, payloads)
 )
 
 COUNTS = dict.fromkeys(NAMES + PIPELINE, 0)

@@ -49,8 +49,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from torch.profiler import record_function
-
 from . import routes
 from .bird_torch import bary_cols, corner_cols
 from .host import (B, TILE, _nearest_phase1_windows, _period_for,
@@ -61,6 +59,7 @@ from .kernels.exact import exact_counts
 from .levelline import f32, get_state_from_coverage
 from .planes import check_device, class_plane_cached
 from .native import unpack_2bit_seq
+from .spans import span
 from .types import OpacityState, get_num_micro_triangles
 
 UO = int(OpacityState.UnknownOpaque)
@@ -468,7 +467,7 @@ def resolve_nearest_phase1(texture, cfg, items, subdiv: int,
     The side map comes to the host as int8, one byte per micro-triangle.
     Profiler label omm.nearest_phase1."""
     device = check_device(device)
-    with record_function("omm.nearest_phase1"):
+    with span("omm.nearest_phase1"):
         windows = _nearest_phase1_windows(texture, cfg,
                                           [it[0] for it in items], subdiv)
         if windows is None:
