@@ -74,8 +74,9 @@ def launches() -> dict:
 
 def pipeline_counts() -> dict:
     """The two-phase engine's batches per path, CUDA graphs captured and
-    replayed, host count-syncs and pinned host tensors made in this
-    process, by name (see `routes.PIPELINE`)."""
+    replayed, host count-syncs, pinned host tensors made and the GPU
+    baker's scratch batches in this process, by name (see
+    `routes.PIPELINE`)."""
     with routes.LOCK:
         return {k: routes.COUNTS[k] for k in routes.PIPELINE}
 

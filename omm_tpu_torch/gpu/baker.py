@@ -39,14 +39,14 @@ from typing import Optional
 
 import numpy as np
 
-from .. import engine, geom, native
+from .. import engine, geom, native, routes
 from ..bake import (MAX_UTRI_PER_BATCH, compute_area_heuristic,
                     create_usage_histograms, micromap_spatial_sort,
                     serialize_result, set_states, split_tail_light,
                     WorkItem)
 from ..batch import classify_work_items_batches
 from ..planes import check_device
-from ..spans import span
+from ..spans import span, spanned
 from ..stats import collect_stats
 from ..texture import Texture
 from ..types import (BakeError, BakeFlags, BakeInputDesc, Format,
@@ -282,6 +282,7 @@ class Pipeline:
         return ranges
 
     # -- Phase C+D: dispatch-chain build + execution -------------------------
+    @spanned("omm.gpu.dispatch")
     def dispatch(self, cfg: DispatchConfigDesc,
                  device="cuda") -> DispatchChain:
         """The dispatch chain of `cfg`, executed by its `execute()` on
@@ -379,6 +380,7 @@ class Pipeline:
             raise BakeError(Result.INVALID_ARGUMENT,
                             "PerformSetup and/or PerformBake must be set")
 
+    @spanned("omm.gpu.levels")
     def _subdiv_levels(self, cfg: DispatchConfigDesc) -> np.ndarray:
         """Per-primitive levels: subdivision-level buffer override or the
         UV-area heuristic (omm_common.hlsli:180-195,228-240 — same formula
@@ -407,6 +409,7 @@ class Pipeline:
                 out[i] = cfg.max_subdivision_level
         return out
 
+    @spanned("omm.gpu.work_setup")
     def _schedule_key(self, cfg: DispatchConfigDesc,
                       levels: np.ndarray) -> int:
         """Identity of a setup's inputs: the bake-only path (the
@@ -422,6 +425,7 @@ class Pipeline:
                            & GpuBakeFlags.DisableTexCoordDeduplication)
                      else 0]))
 
+    @spanned("omm.gpu.work_setup")
     def _work_setup(self, cfg: DispatchConfigDesc, levels: np.ndarray):
         """WorkSetup: first-occurrence dedup on (UVs, level) like the CAS
         hash table (omm_work_setup_cs.cs.hlsl:26-153) but via a dict."""
@@ -446,6 +450,7 @@ class Pipeline:
                 items[hit].primitive_indices.append(i)
         return items
 
+    @spanned("omm.gpu.execute")
     def _execute(self, cfg: DispatchConfigDesc, levels: np.ndarray,
                  device):
         # Channel selection: the analog of the reference's per-channel
@@ -520,59 +525,63 @@ class Pipeline:
         # processed in the batch that owns its first source primitive.
         pre = self.get_pre_dispatch_info(cfg)
         pools = pre.transient_pool_buffer_sizes
-        ranges = self._batch_ranges(cfg, levels)
-        stats = {"batch_count": 0, "max_live_scratch_bytes": 0,
-                 "transient_pool_sizes": pools}
-        done = [False] * len(items)
-        for (s, e) in ranges:
-            sel = [i for i, it in enumerate(items)
-                   if s <= it.primitive_indices[0] < e]
-            if not sel:
-                continue
-            live = sum(get_num_micro_triangles(items[i].subdivision_level)
-                       * 8 for i in sel)
-            assert live <= pools[0], \
-                f"batch scratch {live} exceeds pool 0 ({pools[0]})"
-            stats["batch_count"] += 1
-            stats["max_live_scratch_bytes"] = max(
-                stats["max_live_scratch_bytes"], live)
-            # the two-phase engine takes the non-degenerate items of a
-            # linear-filter, level-line dispatch: ONE call per batch,
-            # largest level first, each level's items in chunks of at
-            # most MAX_UTRI_PER_BATCH micro-triangles (the JAX package's
-            # default schedule, as bake() chunks them)
-            by_level: dict = {}
-            if eligible_cfg:
-                for idx in sel:
-                    if not bool(geom.is_degenerate(items[idx].uv_tri)):
-                        by_level.setdefault(
-                            items[idx].subdivision_level, []).append(idx)
-            chunks: list = []
-            lvls: list = []
-            for lvl in sorted(by_level, reverse=True):
-                per_item = get_num_micro_triangles(lvl)
-                cs = split_tail_light(
-                    by_level[lvl], [max(1, MAX_UTRI_PER_BATCH // per_item)])
-                chunks.extend(cs)
-                lvls.extend([lvl] * len(cs))
-            if chunks:
-                outs = classify_work_items_batches(
-                    tex, rcfg,
-                    [[(items[i].uv_tri,
-                       None if getattr(items[i], "_fresh", False)
-                       else items[i].states) for i in c] for c in chunks],
-                    lvls, device=device, exact=exact)
-                for c, res in zip(chunks, outs):
-                    for i, st in zip(c, res):
-                        set_states(items[i], st)
+        with span("omm.gpu.batches"):
+            ranges = self._batch_ranges(cfg, levels)
+            stats = {"batch_count": 0, "max_live_scratch_bytes": 0,
+                     "transient_pool_sizes": pools}
+            done = [False] * len(items)
+            for (s, e) in ranges:
+                sel = [i for i, it in enumerate(items)
+                       if s <= it.primitive_indices[0] < e]
+                if not sel:
+                    continue
+                live = sum(get_num_micro_triangles(items[i].subdivision_level)
+                           * 8 for i in sel)
+                assert live <= pools[0], \
+                    f"batch scratch {live} exceeds pool 0 ({pools[0]})"
+                stats["batch_count"] += 1
+                routes.count("gpu_batch")
+                stats["max_live_scratch_bytes"] = max(
+                    stats["max_live_scratch_bytes"], live)
+                # the two-phase engine takes the non-degenerate items of a
+                # linear-filter, level-line dispatch: ONE call per batch,
+                # largest level first, each level's items in chunks of at
+                # most MAX_UTRI_PER_BATCH micro-triangles (the JAX package's
+                # default schedule, as bake() chunks them)
+                by_level: dict = {}
+                if eligible_cfg:
+                    for idx in sel:
+                        if not bool(geom.is_degenerate(items[idx].uv_tri)):
+                            by_level.setdefault(
+                                items[idx].subdivision_level, []).append(idx)
+                chunks: list = []
+                lvls: list = []
+                for lvl in sorted(by_level, reverse=True):
+                    per_item = get_num_micro_triangles(lvl)
+                    cs = split_tail_light(
+                        by_level[lvl],
+                        [max(1, MAX_UTRI_PER_BATCH // per_item)])
+                    chunks.extend(cs)
+                    lvls.extend([lvl] * len(cs))
+                if chunks:
+                    outs = classify_work_items_batches(
+                        tex, rcfg,
+                        [[(items[i].uv_tri,
+                           None if getattr(items[i], "_fresh", False)
+                           else items[i].states) for i in c] for c in chunks],
+                        lvls, device=device, exact=exact)
+                    for c, res in zip(chunks, outs):
+                        for i, st in zip(c, res):
+                            set_states(items[i], st)
+                            done[i] = True
+                for i in sel:
+                    if not done[i]:
+                        set_states(items[i], engine.resample_fine_item(
+                            tex, rcfg, items[i].uv_tri,
+                            items[i].subdivision_level, items[i].states,
+                            device))
                         done[i] = True
-            for i in sel:
-                if not done[i]:
-                    set_states(items[i], engine.resample_fine_item(
-                        tex, rcfg, items[i].uv_tri,
-                        items[i].subdivision_level, items[i].states, device))
-                    done[i] = True
-        self.last_dispatch_stats = stats
+            self.last_dispatch_stats = stats
 
         # DescPatch: promote uniform primitives to special indices
         # (omm_desc_patch.cs.hlsl:23-200).  Reading `states` unpacks an
@@ -583,20 +592,26 @@ class Pipeline:
                 if not disable_special and bool((st == st[0]).all()):
                     it.special_index = -int(st[0]) - 1
 
-        arr_hist, idx_hist = create_usage_histograms(items)
-        order = micromap_spatial_sort(items)
-
-        fake_desc = BakeInputDesc(
-            texture=tex, tex_coords=cfg.tex_coords,
-            index_buffer=cfg.index_buffer, index_count=cfg.index_count,
-            format=cfg.global_format,
-            unresolved_tri_state=SpecialIndex.FullyUnknownOpaque,
-            bake_flags=BakeFlags.NONE)
-        if cfg.bake_flags & GpuBakeFlags.Force32BitIndices:
-            fake_desc.bake_flags = BakeFlags.Force32BitIndices
-        elif cfg.bake_flags & GpuBakeFlags.Allow8BitIndices:
-            fake_desc.bake_flags = BakeFlags.Allow8BitIndices
-        result = serialize_result(fake_desc, items, arr_hist, idx_hist, order)
+        # the GPU layout's tail; inside it the CPU tail's span names
+        # (bake.finalize_items)
+        with span("omm.gpu.tail"):
+            with span("omm.histograms"):
+                arr_hist, idx_hist = create_usage_histograms(items)
+            with span("omm.sort"):
+                order = micromap_spatial_sort(items)
+            with span("omm.serialize"):
+                fake_desc = BakeInputDesc(
+                    texture=tex, tex_coords=cfg.tex_coords,
+                    index_buffer=cfg.index_buffer,
+                    index_count=cfg.index_count, format=cfg.global_format,
+                    unresolved_tri_state=SpecialIndex.FullyUnknownOpaque,
+                    bake_flags=BakeFlags.NONE)
+                if cfg.bake_flags & GpuBakeFlags.Force32BitIndices:
+                    fake_desc.bake_flags = BakeFlags.Force32BitIndices
+                elif cfg.bake_flags & GpuBakeFlags.Allow8BitIndices:
+                    fake_desc.bake_flags = BakeFlags.Allow8BitIndices
+                result = serialize_result(fake_desc, items, arr_hist,
+                                          idx_hist, order)
 
         post = PostDispatchInfo(
             out_omm_array_size_in_bytes=len(result.array_data),

@@ -15,9 +15,10 @@ read of a device count ("count_sync": on the discovery path one per
 descent level and one per mip, on the capacity chain the payload's
 meta, one per batch); and every pinned host tensor made for a graph's
 copies ("pinned_alloc": each static input copied in, each payload
-copied out).  Mesh slots count from worker threads, so every
-process-wide count, these and the kernels' launch counts, is read and
-written under LOCK.
+copied out); and the scratch batches that the GPU baker's dispatches
+execute ("gpu_batch", `gpu.Pipeline`'s maxScratchMemorySize batches).
+Mesh slots count from worker threads, so every process-wide count,
+these and the kernels' launch counts, is read and written under LOCK.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ PIPELINE = (
     "graph_replay",   # CUDA graph replays
     "count_sync",     # host reads of a device count
     "pinned_alloc",   # pinned host tensors made (graphs: inputs, payloads)
+    "gpu_batch",      # scratch batches a GPU-baker dispatch executed
 )
 
 COUNTS = dict.fromkeys(NAMES + PIPELINE, 0)

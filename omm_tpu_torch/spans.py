@@ -14,6 +14,7 @@ span of the port goes through here.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
@@ -27,3 +28,14 @@ def span(name: str):
     if _profiler._is_profiler_enabled:
         return record_function(name)
     return _OFF
+
+
+def spanned(name: str):
+    """A decorator: every call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
