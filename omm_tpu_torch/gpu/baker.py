@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 
 from .. import engine, geom, native, routes
-from ..bake import (MAX_UTRI_PER_BATCH, compute_area_heuristic,
+from ..bake import (MAX_UTRI_PER_BATCH, _area_levels,
                     create_usage_histograms, micromap_spatial_sort,
                     serialize_result, set_states, split_tail_light,
                     WorkItem)
@@ -186,8 +186,12 @@ class Pipeline:
 
     # -- Phase B: resource planning (bake_gpu_impl.cpp:434-679) -------------
     def get_pre_dispatch_info(self, cfg: DispatchConfigDesc) -> PreDispatchInfo:
+        return self._pre_dispatch_info(cfg, self._subdiv_levels(cfg))
+
+    def _pre_dispatch_info(self, cfg: DispatchConfigDesc,
+                           levels: np.ndarray) -> PreDispatchInfo:
+        """The pre-dispatch info of `cfg`, whose levels are `levels`."""
         tri_count = cfg.index_count // 3
-        levels = self._subdiv_levels(cfg)
         max_level = int(levels.max()) if len(levels) else 0
 
         bit_count = get_bit_count(cfg.global_format)
@@ -293,11 +297,11 @@ class Pipeline:
         levels = self._subdiv_levels(cfg)
         do_setup = bool(cfg.bake_flags & GpuBakeFlags.PerformSetup)
         do_bake = bool(cfg.bake_flags & GpuBakeFlags.PerformBake)
-        pre = self.get_pre_dispatch_info(cfg)
+        pre = self._pre_dispatch_info(cfg, levels)
         pools = pre.transient_pool_buffer_sizes
         tri_count = cfg.index_count // 3
 
-        # fixed pool-2 layout (bump order mirrors get_pre_dispatch_info)
+        # fixed pool-2 layout (bump order mirrors _pre_dispatch_info)
         wi_size = max(tri_count, 1) * 16
         hist_size = 2 * MAX_NUM_SUBDIV_LEVELS * 12
         hist_off = wi_size
@@ -361,7 +365,7 @@ class Pipeline:
                                       "temp_indices"), assert_rr]}))
 
         def execute():
-            return self._execute(cfg, levels, device)
+            return self._execute(cfg, levels, pre, device)
 
         return DispatchChain(passes=passes, execute=execute)
 
@@ -382,32 +386,34 @@ class Pipeline:
 
     @spanned("omm.gpu.levels")
     def _subdiv_levels(self, cfg: DispatchConfigDesc) -> np.ndarray:
-        """Per-primitive levels: subdivision-level buffer override or the
-        UV-area heuristic (omm_common.hlsli:180-195,228-240 — same formula
-        as the CPU baker)."""
+        """Per-primitive levels, int32, in one array pass: the
+        subdivision-level buffer's override or the UV-area heuristic
+        (omm_common.hlsli:180-195,228-240 — the CPU baker's formula, on
+        every row: no edge heuristic for degenerate ones).  A buffer
+        value v >= 0 is min(v, 12), -1 the maximum, -2 and below the
+        heuristic."""
         tris = np.asarray(cfg.tex_coords, np.float32)[
             np.asarray(cfg.index_buffer, np.int64)[:cfg.index_count]
         ].reshape(-1, 3, 2)
-        tex_size = cfg.alpha_texture.size(0)
-        fake = BakeInputDesc(dynamic_subdivision_scale=cfg.dynamic_subdivision_scale,
-                             max_subdivision_level=cfg.max_subdivision_level)
-        out = np.empty(len(tris), np.int32)
-        for i, t in enumerate(tris):
-            if (cfg.enable_subdivision_level_buffer
-                    and cfg.subdivision_levels is not None):
-                v = int(np.int8(cfg.subdivision_levels[i]))
-                if v >= 0:
-                    out[i] = min(v, 12)
-                    continue
-                if v == -1:
-                    out[i] = cfg.max_subdivision_level
-                    continue
-                # -2: automatic heuristic
-            if cfg.dynamic_subdivision_scale > 0:
-                out[i] = compute_area_heuristic(fake, t, tex_size)
-            else:
-                out[i] = cfg.max_subdivision_level
-        return out
+        n = len(tris)
+        sizef = np.array(cfg.alpha_texture.size(0), dtype=np.float32)
+        if cfg.dynamic_subdivision_scale > 0:
+            fake = BakeInputDesc(
+                dynamic_subdivision_scale=cfg.dynamic_subdivision_scale,
+                max_subdivision_level=cfg.max_subdivision_level)
+            with np.errstate(all="ignore"):
+                out = _area_levels(fake, tris, sizef)
+        else:
+            out = np.full(n, cfg.max_subdivision_level, np.int64)
+        if (cfg.enable_subdivision_level_buffer
+                and cfg.subdivision_levels is not None):
+            # indexed, not sliced: a short buffer raises
+            v = np.asarray(cfg.subdivision_levels)[np.arange(n)].astype(
+                np.int8).astype(np.int64)
+            out = np.where(v >= 0, np.minimum(v, 12),
+                           np.where(v == -1, cfg.max_subdivision_level,
+                                    out))
+        return out.astype(np.int32)
 
     @spanned("omm.gpu.work_setup")
     def _schedule_key(self, cfg: DispatchConfigDesc,
@@ -452,7 +458,7 @@ class Pipeline:
 
     @spanned("omm.gpu.execute")
     def _execute(self, cfg: DispatchConfigDesc, levels: np.ndarray,
-                 device):
+                 pre: PreDispatchInfo, device):
         # Channel selection: the analog of the reference's per-channel
         # Gather PSOs (bake_gpu_impl.cpp:313-419); every engine below
         # samples the selected plane.  The view is cached on the texture,
@@ -523,7 +529,6 @@ class Pipeline:
         # (bake_gpu_impl.cpp:517-584), not just planned; Nsight debug
         # mode runs one primitive per batch (:555-559).  A work item is
         # processed in the batch that owns its first source primitive.
-        pre = self.get_pre_dispatch_info(cfg)
         pools = pre.transient_pool_buffer_sizes
         with span("omm.gpu.batches"):
             ranges = self._batch_ranges(cfg, levels)

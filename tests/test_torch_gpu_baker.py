@@ -428,6 +428,160 @@ def test_gpu_pre_dispatch_info(case):
     assert tp._batch_ranges(tcfg, levels) == jp._batch_ranges(jcfg, levels)
 
 
+# ---------------------------------------------------------------------------
+# Per-primitive levels (one array pass) and the chain built from them
+# ---------------------------------------------------------------------------
+
+def _level_mesh(n, seed):
+    """n random triangles whose UV extents run from 1e-4 to 1e3, then a
+    degenerate (collinear) row, a zero-area row, and rows with a NaN, an
+    Inf, a -Inf and an fp32-overflowing area; the index buffer reuses
+    vertices."""
+    rng = np.random.RandomState(seed)
+    ext = 10.0 ** rng.uniform(-4, 3, (n, 1, 1))
+    tris = rng.rand(n, 1, 2) + rng.rand(n, 3, 2) * ext
+    special = [[[0, 0], [0.5, 0.5], [1, 1]],
+               [[0.2, 0.3], [0.2, 0.3], [0.7, 0.1]],
+               [[0, 0], [np.nan, 1], [1, 0]],
+               [[0, 0], [0, np.inf], [1, 0]],
+               [[-np.inf, 0], [0, 1], [1, 0]],
+               [[0, 0], [3e19, 0], [0, 3e19]]]
+    tc = np.concatenate([tris, special]).astype(np.float32).reshape(-1, 2)
+    rows = n + len(special)
+    # every row once, then the first ten again: reused vertices
+    ib = np.concatenate([np.arange(3 * rows), np.arange(30)])
+    return dict(tex_coords=tc, index_buffer=ib.astype(np.uint32),
+                index_count=len(ib))
+
+
+#: plane shape (h, w) of the texture whose size the heuristic reads
+LEVEL_SIZES = ((64, 64), (16, 1024), (4096, 16), (8, 4096))
+_U8 = np.array(list(range(14)) + [127, 128, 254, 255], np.uint8)
+_I8 = np.array(list(range(14)) + [127, -128, -2, -1, -5], np.int8)
+
+
+LEVEL_CASES = {
+    **{f"heuristic_{h}x{w}_max{m}": ((h, w), dict(max_subdivision_level=m))
+       for h, w in LEVEL_SIZES for m in (0, 5, 8, 12)},
+    "scale_fraction": ((64, 64), dict(dynamic_subdivision_scale=0.37,
+                                      max_subdivision_level=12)),
+    "scale_zero": ((64, 64), dict(dynamic_subdivision_scale=0.0,
+                                  max_subdivision_level=7)),
+    "scale_negative": ((64, 64), dict(dynamic_subdivision_scale=-1.5,
+                                      max_subdivision_level=5)),
+    "buffer_uint8": ((64, 64), dict(enable_subdivision_level_buffer=True,
+                                    buffer=_U8, max_subdivision_level=5)),
+    "buffer_int8": ((16, 1024), dict(enable_subdivision_level_buffer=True,
+                                     buffer=_I8, max_subdivision_level=12)),
+    "buffer_int8_scale_zero": ((64, 64), dict(
+        enable_subdivision_level_buffer=True, buffer=_I8,
+        dynamic_subdivision_scale=0.0, max_subdivision_level=8)),
+    "buffer_flag_off": ((64, 64), dict(buffer=_U8,
+                                       max_subdivision_level=8)),
+    "flag_without_buffer": ((64, 64), dict(
+        enable_subdivision_level_buffer=True, max_subdivision_level=8)),
+    "empty_mesh": ((64, 64), dict(index_count=0,
+                                  enable_subdivision_level_buffer=True,
+                                  buffer=_U8)),
+    "short_buffer": ((64, 64), dict(enable_subdivision_level_buffer=True,
+                                    buffer=_U8, short=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEVEL_CASES))
+def test_gpu_levels_equal_the_jax_package(case):
+    """The port's batched `_subdiv_levels` against the JAX package's
+    per-primitive loop: equal int32 arrays, or the same error for a
+    level buffer shorter than the mesh."""
+    shape, fields = LEVEL_CASES[case]
+    fields = dict(_level_mesh(60, 7), **fields)
+    buf = fields.pop("buffer", None)
+    short = fields.pop("short", False)
+    if buf is not None:
+        n = fields["index_count"] // 3
+        fields["subdivision_levels"] = np.resize(buf, n - 1 if short else n)
+    jcfg, tcfg = _cfgs([np.zeros(shape, np.float32)], **fields)
+    if short:
+        with pytest.raises(IndexError):
+            jgpu.Pipeline()._subdiv_levels(jcfg)
+        with pytest.raises(IndexError):
+            tgpu.Pipeline()._subdiv_levels(tcfg)
+        return
+    want = jgpu.Pipeline()._subdiv_levels(jcfg)
+    got = tgpu.Pipeline()._subdiv_levels(tcfg)
+    assert got.dtype == want.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
+def _chain(chain):
+    """A chain's passes as plain tuples (ResourceRanges included)."""
+    return [(p.label, p.kind,
+             {k: ([dataclasses.astuple(r) for r in v]
+                  if k == "resources" else v)
+              for k, v in p.detail.items()})
+            for p in chain.passes]
+
+
+CHAIN = {
+    # three level-9 primitives of 2 MiB scratch each under 4 MiB: two
+    # batches
+    "mb4": dict(zip(("tex_coords", "index_buffer"), _mesh(3, 5)),
+                index_count=9, max_subdivision_level=9,
+                dynamic_subdivision_scale=0.0,
+                max_scratch_memory_size=int(tgpu.ScratchMemoryBudget.MB_4)),
+    "level_buffer": dict(
+        zip(("tex_coords", "index_buffer"), _mesh(8, 6)),
+        index_count=24, max_subdivision_level=5,
+        dynamic_subdivision_scale=2.0,
+        enable_subdivision_level_buffer=True,
+        subdivision_levels=np.array([0, 255, 254, 12, 3, 4, 128, 1],
+                                    np.uint8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN))
+def test_gpu_dispatch_chain_equals_the_jax_package(case, monkeypatch):
+    """A dispatch builds its chain from one pre-dispatch info, equal to
+    the public get_pre_dispatch_info's and the JAX package's; its passes
+    and batch ranges equal the JAX package's; execute() plans with the
+    same info, and computes neither it nor the levels again."""
+    jcfg, tcfg = _cfgs([standard_circle(128, 128)], **CHAIN[case])
+    jp, tp = jgpu.Pipeline(), tgpu.Pipeline()
+    infos, level_calls = [], []
+    pre_info, subdiv = tp._pre_dispatch_info, tp._subdiv_levels
+
+    def spy_info(cfg, levels):
+        infos.append(pre_info(cfg, levels))
+        return infos[-1]
+
+    def spy_levels(cfg):
+        level_calls.append(cfg)
+        return subdiv(cfg)
+
+    monkeypatch.setattr(tp, "_pre_dispatch_info", spy_info)
+    monkeypatch.setattr(tp, "_subdiv_levels", spy_levels)
+    tchain = tp.dispatch(tcfg, device="cpu")
+    assert len(infos) == len(level_calls) == 1
+    (info,) = infos
+    assert info == tgpu.Pipeline().get_pre_dispatch_info(tcfg)
+    ji = jp.get_pre_dispatch_info(jcfg)
+    for f in dataclasses.fields(ji):
+        a, b = getattr(ji, f.name), getattr(info, f.name)
+        assert (tuple(a) == tuple(b) if isinstance(a, tuple)
+                else int(a) == int(b)), f.name
+    jchain = jp.dispatch(jcfg, backend="numpy")
+    assert _chain(tchain) == _chain(jchain)
+    levels = subdiv(tcfg)
+    ranges = tp._batch_ranges(tcfg, levels)
+    assert ranges == jp._batch_ranges(jcfg, jp._subdiv_levels(jcfg))
+    assert (len(ranges) > 1) == (case == "mb4")
+    tchain.execute()
+    assert len(infos) == len(level_calls) == 1
+    stats = tp.last_dispatch_stats
+    assert stats["transient_pool_sizes"] == info.transient_pool_buffer_sizes
+    assert stats["batch_count"] == len(ranges)
+
+
 def test_gpu_pipeline_desc():
     want = jgpu.Pipeline().get_pipeline_desc()
     got = tgpu.Pipeline().get_pipeline_desc()

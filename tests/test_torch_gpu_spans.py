@@ -1,8 +1,9 @@
 """omm_tpu_torch.gpu's profiler spans and its scratch-batch counter: a
 small GPU-baker dispatch on the CPU under a profiler opens every span
 of the baker's host path, each nested as `gpu/baker.py` opens it (the
-levels directly inside `omm.gpu.dispatch` and `omm.gpu.execute`, the
-execute's parts directly inside it, the batch pipeline's spans inside
+levels once, directly inside `omm.gpu.dispatch`, and a lone
+`get_pre_dispatch_info` opens them once; the execute's parts directly
+inside it, the batch pipeline's spans inside
 `omm.gpu.batches`, the CPU tail's names inside `omm.gpu.tail`); with no
 profiler it enters no `record_function`; `pipeline_counts()["gpu_batch"]`
 counts the dispatch's
@@ -22,9 +23,11 @@ import omm_tpu_torch as ot  # noqa: E402
 from omm_tpu_torch import convert, spans  # noqa: E402
 from omm_tpu_torch import gpu as tgpu  # noqa: E402
 
+#: the spans gpu/baker.py opens directly inside omm.gpu.dispatch
+DISPATCH_CHILDREN = ("omm.gpu.levels",)
 #: the spans gpu/baker.py opens directly inside omm.gpu.execute
-EXECUTE_CHILDREN = ("omm.gpu.levels", "omm.gpu.work_setup",
-                    "omm.gpu.batches", "omm.desc_patch", "omm.gpu.tail")
+EXECUTE_CHILDREN = ("omm.gpu.work_setup", "omm.gpu.batches",
+                    "omm.desc_patch", "omm.gpu.tail")
 #: the CPU tail's names, inside omm.gpu.tail
 TAIL_CHILDREN = ("omm.histograms", "omm.sort", "omm.serialize")
 #: the batch pipeline's calling-thread spans inside omm.gpu.batches
@@ -93,19 +96,21 @@ def _inside(x, y):
 def test_dispatch_shows_every_span_nested():
     _, ev = _profiled(_cfg())
     names = {n for n, *_ in ev}
-    for label in ("omm.gpu.dispatch", "omm.gpu.execute",
+    for label in ("omm.gpu.dispatch", "omm.gpu.execute", *DISPATCH_CHILDREN,
                   *EXECUTE_CHILDREN, *BATCH_CHILDREN, *TAIL_CHILDREN):
         assert label in names, label
     (dispatch,) = [x for x in ev if x[0] == "omm.gpu.dispatch"]
     (execute,) = [x for x in ev if x[0] == "omm.gpu.execute"]
     assert dispatch[3] <= execute[2]
-    levels = [x for x in ev if x[0] == "omm.gpu.levels"]
-    # _subdiv_levels in dispatch and in the two get_pre_dispatch_info
-    assert sum(_inside(x, dispatch) for x in levels) == 2
-    assert sum(_inside(x, execute) for x in levels) == 1
-    children = [x for x in ev if x[0] in EXECUTE_CHILDREN]
+    # _subdiv_levels once a dispatch: the chain and its execute() share
+    # the levels and the pre-dispatch info
+    (levels,) = [x for x in ev if x[0] == "omm.gpu.levels"]
+    assert _inside(levels, dispatch) and not _inside(levels, execute)
+    children = [x for x in ev
+                if x[0] in DISPATCH_CHILDREN + EXECUTE_CHILDREN]
     for x in children:
-        assert _inside(x, dispatch) or _inside(x, execute), x[0]
+        assert _inside(x, dispatch if x[0] in DISPATCH_CHILDREN
+                       else execute), x[0]
         # direct children: none inside another
         assert not any(_inside(x, y) for y in children if y is not x), x[0]
     # the schedule key and WorkSetup
@@ -117,6 +122,13 @@ def test_dispatch_shows_every_span_nested():
             assert _inside(x, batches), x[0]
         if x[0] in TAIL_CHILDREN:
             assert _inside(x, tail), x[0]
+
+
+def test_lone_pre_dispatch_info_opens_one_levels_span():
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tgpu.Pipeline().get_pre_dispatch_info(_cfg())
+    names = [e.name for e in prof.events() if e.name.startswith("omm.")]
+    assert names == ["omm.gpu.levels"]
 
 
 def test_dispatch_without_a_profiler_enters_no_record_function(
