@@ -10,7 +10,7 @@ maxScratchMemorySize (bake_gpu_impl.cpp:434-679, 788-1272).
 
 Here the chain is a plan of labeled passes that this module executes on
 a torch device: indirect dispatch becomes per-level batches of the
-two-phase engine (`batch.classify_work_items_batches`), the CAS
+two-phase engine (the bake's fine pass, `bake.classify_fine`), the CAS
 hash-table dedup of work-setup (omm_work_setup_cs.cs.hlsl) a dict over
 UV keys.  The plan is still introspectable (pass labels mirror the
 reference's debug markers, `rhi.record_chain` walks it) and the setup
@@ -39,19 +39,16 @@ from typing import Optional
 
 import numpy as np
 
-from .. import engine, geom, native, routes
-from ..bake import (MAX_UTRI_PER_BATCH, _area_levels,
-                    create_usage_histograms, micromap_spatial_sort,
-                    serialize_result, set_states, split_tail_light,
-                    WorkItem)
-from ..batch import classify_work_items_batches
+from .. import engine, native, routes
+from ..bake import (area_levels, classify_fine, degenerate_mask,
+                    write_result, WorkItem)
 from ..planes import check_device
 from ..spans import span, spanned
 from ..stats import collect_stats
 from ..texture import Texture
 from ..types import (BakeError, BakeFlags, BakeInputDesc, Format,
                      IndexFormat, OpacityState, Result, SamplerDesc,
-                     SpecialIndex, TextureFilterMode, UnknownStatePromotion,
+                     SpecialIndex, UnknownStatePromotion,
                      get_bit_count, get_num_micro_triangles,
                      MAX_NUM_SUBDIV_LEVELS)
 from .rhi import ResourceRange as RR
@@ -186,7 +183,8 @@ class Pipeline:
 
     # -- Phase B: resource planning (bake_gpu_impl.cpp:434-679) -------------
     def get_pre_dispatch_info(self, cfg: DispatchConfigDesc) -> PreDispatchInfo:
-        return self._pre_dispatch_info(cfg, self._subdiv_levels(cfg))
+        return self._pre_dispatch_info(
+            cfg, self._subdiv_levels(cfg, self._triangles(cfg)))
 
     def _pre_dispatch_info(self, cfg: DispatchConfigDesc,
                            levels: np.ndarray) -> PreDispatchInfo:
@@ -196,11 +194,10 @@ class Pipeline:
 
         bit_count = get_bit_count(cfg.global_format)
         # Conservative: every primitive unique at its own level.
-        array_size = 0
-        for lvl in np.bincount(levels, minlength=MAX_NUM_SUBDIV_LEVELS).nonzero()[0]:
-            cnt = int((levels == lvl).sum())
-            array_size += cnt * max((get_num_micro_triangles(int(lvl))
-                                     * bit_count) >> 3, 1)
+        counts = np.bincount(levels, minlength=MAX_NUM_SUBDIV_LEVELS)
+        array_size = sum(int(cnt) * max((get_num_micro_triangles(lvl)
+                                         * bit_count) >> 3, 1)
+                         for lvl, cnt in enumerate(counts))
         array_size = min(array_size, cfg.max_out_omm_array_size)
 
         force32 = bool(cfg.bake_flags & GpuBakeFlags.Force32BitIndices)
@@ -294,12 +291,14 @@ class Pipeline:
         card) or "cpu"."""
         device = check_device(device)
         self._validate(cfg)
-        levels = self._subdiv_levels(cfg)
+        tris = self._triangles(cfg)
+        levels = self._subdiv_levels(cfg, tris)
         do_setup = bool(cfg.bake_flags & GpuBakeFlags.PerformSetup)
         do_bake = bool(cfg.bake_flags & GpuBakeFlags.PerformBake)
         pre = self._pre_dispatch_info(cfg, levels)
         pools = pre.transient_pool_buffer_sizes
         tri_count = cfg.index_count // 3
+        ranges = self._batch_ranges(cfg, levels) if do_bake else None
 
         # fixed pool-2 layout (bump order mirrors _pre_dispatch_info)
         wi_size = max(tri_count, 1) * 16
@@ -334,13 +333,14 @@ class Pipeline:
             # bump-allocated pool sub-ranges it touches; pool 0 and the
             # pool-2 args region reset at every batch boundary (the
             # reference's per-batch transient reuse, :517-584)
-            ranges = self._batch_ranges(cfg, levels)
             multi = len(ranges) > 1
             for b, (s, e) in enumerate(ranges):
                 bump0 = 0   # pool-0 bump pointer, reset per batch
                 bump_args = args_off
-                for lvl in sorted(set(int(l) for l in levels[s:e])):
-                    cnt = int((levels[s:e] == lvl).sum())
+                counts = np.bincount(levels[s:e],
+                                     minlength=MAX_NUM_SUBDIV_LEVELS)
+                for lvl in np.flatnonzero(counts).tolist():
+                    cnt = int(counts[lvl])
                     label = (f"Batch {b} Level {lvl}" if multi
                              else f"Level {lvl}")
                     res_size = cnt * get_num_micro_triangles(lvl) * 8
@@ -365,7 +365,7 @@ class Pipeline:
                                       "temp_indices"), assert_rr]}))
 
         def execute():
-            return self._execute(cfg, levels, pre, device)
+            return self._execute(cfg, tris, levels, ranges, pre, device)
 
         return DispatchChain(passes=passes, execute=execute)
 
@@ -384,25 +384,29 @@ class Pipeline:
             raise BakeError(Result.INVALID_ARGUMENT,
                             "PerformSetup and/or PerformBake must be set")
 
-    @spanned("omm.gpu.levels")
-    def _subdiv_levels(self, cfg: DispatchConfigDesc) -> np.ndarray:
-        """Per-primitive levels, int32, in one array pass: the
-        subdivision-level buffer's override or the UV-area heuristic
-        (omm_common.hlsli:180-195,228-240 — the CPU baker's formula, on
-        every row: no edge heuristic for degenerate ones).  A buffer
-        value v >= 0 is min(v, 12), -1 the maximum, -2 and below the
-        heuristic."""
-        tris = np.asarray(cfg.tex_coords, np.float32)[
+    @staticmethod
+    def _triangles(cfg: DispatchConfigDesc) -> np.ndarray:
+        """The (T, 3, 2) fp32 UV triangles of `cfg`, gathered once a
+        dispatch for its levels and its WorkSetup."""
+        return np.asarray(cfg.tex_coords, np.float32)[
             np.asarray(cfg.index_buffer, np.int64)[:cfg.index_count]
         ].reshape(-1, 3, 2)
+
+    @spanned("omm.gpu.levels")
+    def _subdiv_levels(self, cfg: DispatchConfigDesc,
+                       tris: np.ndarray) -> np.ndarray:
+        """Per-primitive levels of the triangles `tris` of `cfg`, int32,
+        in one array pass: the subdivision-level buffer's override or the
+        UV-area heuristic (omm_common.hlsli:180-195,228-240 — the CPU
+        baker's formula, on every row: no edge heuristic for degenerate
+        ones).  A buffer value v >= 0 is min(v, 12), -1 the maximum, -2
+        and below the heuristic."""
         n = len(tris)
-        sizef = np.array(cfg.alpha_texture.size(0), dtype=np.float32)
         if cfg.dynamic_subdivision_scale > 0:
-            fake = BakeInputDesc(
-                dynamic_subdivision_scale=cfg.dynamic_subdivision_scale,
-                max_subdivision_level=cfg.max_subdivision_level)
+            sizef = np.array(cfg.alpha_texture.size(0), dtype=np.float32)
             with np.errstate(all="ignore"):
-                out = _area_levels(fake, tris, sizef)
+                out = area_levels(tris, sizef, cfg.dynamic_subdivision_scale,
+                                  cfg.max_subdivision_level)
         else:
             out = np.full(n, cfg.max_subdivision_level, np.int64)
         if (cfg.enable_subdivision_level_buffer
@@ -432,12 +436,11 @@ class Pipeline:
                      else 0]))
 
     @spanned("omm.gpu.work_setup")
-    def _work_setup(self, cfg: DispatchConfigDesc, levels: np.ndarray):
-        """WorkSetup: first-occurrence dedup on (UVs, level) like the CAS
-        hash table (omm_work_setup_cs.cs.hlsl:26-153) but via a dict."""
-        tris = np.asarray(cfg.tex_coords, np.float32)[
-            np.asarray(cfg.index_buffer, np.int64)[:cfg.index_count]
-        ].reshape(-1, 3, 2)
+    def _work_setup(self, cfg: DispatchConfigDesc, tris: np.ndarray,
+                    levels: np.ndarray):
+        """WorkSetup of the triangles `tris` of `cfg`: first-occurrence
+        dedup on (UVs, level) like the CAS hash table
+        (omm_work_setup_cs.cs.hlsl:26-153) but via a dict."""
         dedup = not (cfg.bake_flags & GpuBakeFlags.DisableTexCoordDeduplication)
         items: list[WorkItem] = []
         seen: dict = {}
@@ -457,8 +460,9 @@ class Pipeline:
         return items
 
     @spanned("omm.gpu.execute")
-    def _execute(self, cfg: DispatchConfigDesc, levels: np.ndarray,
-                 pre: PreDispatchInfo, device):
+    def _execute(self, cfg: DispatchConfigDesc, tris: np.ndarray,
+                 levels: np.ndarray, ranges: list, pre: PreDispatchInfo,
+                 device):
         # Channel selection: the analog of the reference's per-channel
         # Gather PSOs (bake_gpu_impl.cpp:313-419); every engine below
         # samples the selected plane.  The view is cached on the texture,
@@ -470,7 +474,7 @@ class Pipeline:
         skey = self._schedule_key(cfg, levels)
 
         if do_setup:
-            items = self._work_setup(cfg, levels)
+            items = self._work_setup(cfg, tris, levels)
             self._setup_store[skey] = items
             if not do_bake:
                 # setup-only: persist the schedule, report planned sizes
@@ -521,71 +525,35 @@ class Pipeline:
         # exact_engine="xla")
         exact = ("torch" if cfg.bake_flags & GpuBakeFlags.ComputeOnly
                  else None)
-        eligible_cfg = (rcfg.filter == TextureFilterMode.Linear
-                        and not rcfg.disable_level_line)
 
         # Batched execution bounding live micro-tri scratch under
         # maxScratchMemorySize — the reference's batching EXECUTED
         # (bake_gpu_impl.cpp:517-584), not just planned; Nsight debug
         # mode runs one primitive per batch (:555-559).  A work item is
-        # processed in the batch that owns its first source primitive.
+        # processed in the batch that owns its first source primitive,
+        # by the CPU bake's fine pass (no coarse pass before it).
         pools = pre.transient_pool_buffer_sizes
         with span("omm.gpu.batches"):
-            ranges = self._batch_ranges(cfg, levels)
             stats = {"batch_count": 0, "max_live_scratch_bytes": 0,
                      "transient_pool_sizes": pools}
-            done = [False] * len(items)
+            with span("omm.chunk"):
+                degen = degenerate_mask(items)
+                first = np.array([it.primitive_indices[0] for it in items],
+                                 np.int64)
             for (s, e) in ranges:
-                sel = [i for i, it in enumerate(items)
-                       if s <= it.primitive_indices[0] < e]
-                if not sel:
+                sel = (first >= s) & (first < e)
+                if not sel.any():
                     continue
                 live = sum(get_num_micro_triangles(items[i].subdivision_level)
-                           * 8 for i in sel)
+                           * 8 for i in np.flatnonzero(sel))
                 assert live <= pools[0], \
                     f"batch scratch {live} exceeds pool 0 ({pools[0]})"
                 stats["batch_count"] += 1
                 routes.count("gpu_batch")
                 stats["max_live_scratch_bytes"] = max(
                     stats["max_live_scratch_bytes"], live)
-                # the two-phase engine takes the non-degenerate items of a
-                # linear-filter, level-line dispatch: ONE call per batch,
-                # largest level first, each level's items in chunks of at
-                # most MAX_UTRI_PER_BATCH micro-triangles (the JAX package's
-                # default schedule, as bake() chunks them)
-                by_level: dict = {}
-                if eligible_cfg:
-                    for idx in sel:
-                        if not bool(geom.is_degenerate(items[idx].uv_tri)):
-                            by_level.setdefault(
-                                items[idx].subdivision_level, []).append(idx)
-                chunks: list = []
-                lvls: list = []
-                for lvl in sorted(by_level, reverse=True):
-                    per_item = get_num_micro_triangles(lvl)
-                    cs = split_tail_light(
-                        by_level[lvl],
-                        [max(1, MAX_UTRI_PER_BATCH // per_item)])
-                    chunks.extend(cs)
-                    lvls.extend([lvl] * len(cs))
-                if chunks:
-                    outs = classify_work_items_batches(
-                        tex, rcfg,
-                        [[(items[i].uv_tri,
-                           None if getattr(items[i], "_fresh", False)
-                           else items[i].states) for i in c] for c in chunks],
-                        lvls, device=device, exact=exact)
-                    for c, res in zip(chunks, outs):
-                        for i, st in zip(c, res):
-                            set_states(items[i], st)
-                            done[i] = True
-                for i in sel:
-                    if not done[i]:
-                        set_states(items[i], engine.resample_fine_item(
-                            tex, rcfg, items[i].uv_tri,
-                            items[i].subdivision_level, items[i].states,
-                            device))
-                        done[i] = True
+                classify_fine(tex, rcfg, items, sel, degen, device,
+                              exact=exact)
             self.last_dispatch_stats = stats
 
         # DescPatch: promote uniform primitives to special indices
@@ -597,26 +565,20 @@ class Pipeline:
                 if not disable_special and bool((st == st[0]).all()):
                     it.special_index = -int(st[0]) - 1
 
-        # the GPU layout's tail; inside it the CPU tail's span names
-        # (bake.finalize_items)
+        # the GPU layout's tail: the CPU bake's result writer
+        # (bake.write_result) under a serialize descriptor of `cfg`
         with span("omm.gpu.tail"):
-            with span("omm.histograms"):
-                arr_hist, idx_hist = create_usage_histograms(items)
-            with span("omm.sort"):
-                order = micromap_spatial_sort(items)
-            with span("omm.serialize"):
-                fake_desc = BakeInputDesc(
-                    texture=tex, tex_coords=cfg.tex_coords,
-                    index_buffer=cfg.index_buffer,
-                    index_count=cfg.index_count, format=cfg.global_format,
-                    unresolved_tri_state=SpecialIndex.FullyUnknownOpaque,
-                    bake_flags=BakeFlags.NONE)
-                if cfg.bake_flags & GpuBakeFlags.Force32BitIndices:
-                    fake_desc.bake_flags = BakeFlags.Force32BitIndices
-                elif cfg.bake_flags & GpuBakeFlags.Allow8BitIndices:
-                    fake_desc.bake_flags = BakeFlags.Allow8BitIndices
-                result = serialize_result(fake_desc, items, arr_hist,
-                                          idx_hist, order)
+            sdesc = BakeInputDesc(
+                texture=tex, tex_coords=cfg.tex_coords,
+                index_buffer=cfg.index_buffer,
+                index_count=cfg.index_count, format=cfg.global_format,
+                unresolved_tri_state=SpecialIndex.FullyUnknownOpaque,
+                bake_flags=BakeFlags.NONE)
+            if cfg.bake_flags & GpuBakeFlags.Force32BitIndices:
+                sdesc.bake_flags = BakeFlags.Force32BitIndices
+            elif cfg.bake_flags & GpuBakeFlags.Allow8BitIndices:
+                sdesc.bake_flags = BakeFlags.Allow8BitIndices
+            result = write_result(sdesc, items)
 
         post = PostDispatchInfo(
             out_omm_array_size_in_bytes=len(result.array_data),

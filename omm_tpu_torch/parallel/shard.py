@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import bird, geom, host
-from ..bake import MAX_UTRI_PER_BATCH, split_tail_light
+from ..bake import level_chunks
 from ..batch import classify_work_items_batches
 from ..bird_torch import bary_cols
 from ..classify import linear_counts, row_blocks
@@ -171,13 +171,11 @@ def sharded_bake_step(mesh: DeviceMesh, plane, uv_tris, ccws, *, subdiv,
 def classify_slices(mesh: DeviceMesh, texture, cfg, uvs, subdiv: int):
     """Fresh fast-path work items of one level (their (3, 2) UVs) with
     the work-item axis split over the mesh: slot k classifies its slice
-    through `classify_work_items_batches` on its device, in batches of
-    at most MAX_UTRI_PER_BATCH micro-triangles as the bake splits them.
-    Returns each item's result as the engine gives it (PackedStates)."""
-    per_batch = max(1, MAX_UTRI_PER_BATCH // get_num_micro_triangles(subdiv))
-
+    through `classify_work_items_batches` on its device, in the bake's
+    batches (`bake.level_chunks`).  Returns each item's result as the
+    engine gives it (PackedStates)."""
     def slot(dev, lo, hi):
-        chunks = split_tail_light(list(range(lo, hi)), [per_batch])
+        chunks = level_chunks(list(range(lo, hi)), subdiv)
         outs = classify_work_items_batches(
             texture, cfg, [[(uvs[i], None) for i in c] for c in chunks],
             subdiv, device=dev)

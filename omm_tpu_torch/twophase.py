@@ -68,16 +68,16 @@ UT = int(OpacityState.UnknownTransparent)
 
 class PackedStates:
     """A classified item's states in serialize's sequential 2-bit
-    OC1_4_State layout (state j in byte j>>2 at shift (j&3)*2).  Same
-    interface as the JAX package's class of this name, which
-    `WorkItem.set_packed_states` and `serialize_result` use."""
+    OC1_4_State layout (state j in byte j>>2 at shift (j&3)*2), as
+    `WorkItem.set_packed_states` and `serialize_result` use it.  The
+    JAX package's class of this name also carries a `blob_offset` into
+    its speculative serialize blob, which the port does not have."""
 
-    __slots__ = ("packed", "M", "blob_offset")
+    __slots__ = ("packed", "M")
 
-    def __init__(self, packed: np.ndarray, M: int, blob_offset=None):
+    def __init__(self, packed: np.ndarray, M: int):
         self.packed = packed
         self.M = M
-        self.blob_offset = blob_offset
 
     def unpack(self) -> np.ndarray:
         return unpack_2bit_seq(self.packed, self.M)

@@ -33,9 +33,8 @@ from test_torch_post import _interp_pallas  # noqa: E402
 from test_torch_twophase import _cfg, port_inputs  # noqa: E402
 from torch_native_guard import jax_native_pinned  # noqa: E402,F401
 
-# the modules, not the functions the package exports under their names
+# the module, not the function the package exports under its name
 tbake = importlib.import_module("omm_tpu_torch.bake")
-tgpu_baker = importlib.import_module("omm_tpu_torch.gpu.baker")
 
 UO = 3
 #: a line triangle (exactly collinear in fp32): off the fast path, on
@@ -378,9 +377,9 @@ def _mesh_fields(n=12, subdiv=4):
 
 
 def _small_batches(monkeypatch):
-    """Batches of 4 items at subdivision 4, so the mesh takes 3."""
-    for mod in (tbake, tgpu_baker):
-        monkeypatch.setattr(mod, "MAX_UTRI_PER_BATCH", 4 * 4 ** 4)
+    """Batches of 4 items at subdivision 4, so the mesh takes 3: the
+    bake's chunk rule, which the GPU baker runs too."""
+    monkeypatch.setattr(tbake, "MAX_UTRI_PER_BATCH", 4 * 4 ** 4)
 
 
 def test_bake_on_drained_chain_equals_oracle(monkeypatch):

@@ -12,6 +12,7 @@ tests/test_gpu_baker.py (its fixture matrix, the reference suite's
 circle statistics, the packaging flags, setup before build, scratch
 batching, the RHI) and the GPU leg of tests/test_differential_fuzz.py."""
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -423,7 +424,7 @@ def test_gpu_pre_dispatch_info(case):
         a, b = getattr(ji, f.name), getattr(ti, f.name)
         assert (tuple(a) == tuple(b) if isinstance(a, tuple)
                 else int(a) == int(b)), f.name
-    levels = tp._subdiv_levels(tcfg)
+    levels = tp._subdiv_levels(tcfg, tp._triangles(tcfg))
     assert np.array_equal(levels, jp._subdiv_levels(jcfg))
     assert tp._batch_ranges(tcfg, levels) == jp._batch_ranges(jcfg, levels)
 
@@ -501,14 +502,15 @@ def test_gpu_levels_equal_the_jax_package(case):
         n = fields["index_count"] // 3
         fields["subdivision_levels"] = np.resize(buf, n - 1 if short else n)
     jcfg, tcfg = _cfgs([np.zeros(shape, np.float32)], **fields)
+    tp = tgpu.Pipeline()
     if short:
         with pytest.raises(IndexError):
             jgpu.Pipeline()._subdiv_levels(jcfg)
         with pytest.raises(IndexError):
-            tgpu.Pipeline()._subdiv_levels(tcfg)
+            tp._subdiv_levels(tcfg, tp._triangles(tcfg))
         return
     want = jgpu.Pipeline()._subdiv_levels(jcfg)
-    got = tgpu.Pipeline()._subdiv_levels(tcfg)
+    got = tp._subdiv_levels(tcfg, tp._triangles(tcfg))
     assert got.dtype == want.dtype == np.int32
     assert np.array_equal(got, want)
 
@@ -544,24 +546,37 @@ def test_gpu_dispatch_chain_equals_the_jax_package(case, monkeypatch):
     """A dispatch builds its chain from one pre-dispatch info, equal to
     the public get_pre_dispatch_info's and the JAX package's; its passes
     and batch ranges equal the JAX package's; execute() plans with the
-    same info, and computes neither it nor the levels again."""
+    same info, and computes neither it, nor the triangles, the levels
+    or the batch ranges again: each once per dispatch and execute()."""
     jcfg, tcfg = _cfgs([standard_circle(128, 128)], **CHAIN[case])
     jp, tp = jgpu.Pipeline(), tgpu.Pipeline()
-    infos, level_calls = [], []
+    infos, level_calls, gathers, range_calls = [], [], [], []
     pre_info, subdiv = tp._pre_dispatch_info, tp._subdiv_levels
+    triangles, batch_ranges = tp._triangles, tp._batch_ranges
 
     def spy_info(cfg, levels):
         infos.append(pre_info(cfg, levels))
         return infos[-1]
 
-    def spy_levels(cfg):
+    def spy_levels(cfg, tris):
         level_calls.append(cfg)
-        return subdiv(cfg)
+        return subdiv(cfg, tris)
+
+    def spy_triangles(cfg):
+        gathers.append(cfg)
+        return triangles(cfg)
+
+    def spy_ranges(cfg, levels):
+        range_calls.append(cfg)
+        return batch_ranges(cfg, levels)
 
     monkeypatch.setattr(tp, "_pre_dispatch_info", spy_info)
     monkeypatch.setattr(tp, "_subdiv_levels", spy_levels)
+    monkeypatch.setattr(tp, "_triangles", spy_triangles)
+    monkeypatch.setattr(tp, "_batch_ranges", spy_ranges)
     tchain = tp.dispatch(tcfg, device="cpu")
-    assert len(infos) == len(level_calls) == 1
+    calls = (infos, level_calls, gathers, range_calls)
+    assert [len(c) for c in calls] == [1, 1, 1, 1]
     (info,) = infos
     assert info == tgpu.Pipeline().get_pre_dispatch_info(tcfg)
     ji = jp.get_pre_dispatch_info(jcfg)
@@ -571,12 +586,12 @@ def test_gpu_dispatch_chain_equals_the_jax_package(case, monkeypatch):
                 else int(a) == int(b)), f.name
     jchain = jp.dispatch(jcfg, backend="numpy")
     assert _chain(tchain) == _chain(jchain)
-    levels = subdiv(tcfg)
-    ranges = tp._batch_ranges(tcfg, levels)
+    levels = subdiv(tcfg, triangles(tcfg))
+    ranges = batch_ranges(tcfg, levels)
     assert ranges == jp._batch_ranges(jcfg, jp._subdiv_levels(jcfg))
     assert (len(ranges) > 1) == (case == "mb4")
     tchain.execute()
-    assert len(infos) == len(level_calls) == 1
+    assert [len(c) for c in calls] == [1, 1, 1, 1]
     stats = tp.last_dispatch_stats
     assert stats["transient_pool_sizes"] == info.transient_pool_buffer_sizes
     assert stats["batch_count"] == len(ranges)
@@ -702,6 +717,62 @@ def test_exact_engine_selector(case, monkeypatch):
         tgpu.Pipeline().dispatch(_quad(plane, 3, bake_flags=flags)[1],
                                  device="cpu").execute()
     assert seen and set(seen) == {want}
+
+
+#: 24 triangles, levels 3 and 2 in turn from the level buffer
+FINE_LEVELS = np.tile(np.array([3, 2], np.uint8), 12)
+#: one scratch batch, or three of four triangles of each level
+FINE_BUDGETS = {"one_batch": ({}, 1),
+                "three_batches": ({"max_scratch_memory_size":
+                                   4 * (4 ** 3 + 4 ** 2) * 8}, 3)}
+
+
+@pytest.mark.parametrize("budget", sorted(FINE_BUDGETS))
+@pytest.mark.parametrize("flags", [3, 3 | 4], ids=["default", "compute_only"])
+def test_both_bakers_hand_the_engine_the_same_chunks(budget, flags,
+                                                     monkeypatch):
+    """The GPU baker runs the bake's fine pass: under a patched
+    MAX_UTRI_PER_BATCH (2 items a chunk at level 3, 8 at level 2), its
+    one `classify_work_items_batches` call per scratch batch gets the
+    same chunks of fresh items (UVs), levels and exact engine as the
+    call of ot.bake over that batch's triangles, but for ComputeOnly's
+    "torch"; the dispatch equals the JAX package's."""
+    fields, n_ranges = FINE_BUDGETS[budget]
+    tbake = importlib.import_module("omm_tpu_torch.bake")
+    monkeypatch.setattr(tbake, "MAX_UTRI_PER_BATCH", 2 * 4 ** 3)
+    calls, engine_batches = [], tbake.classify_work_items_batches
+
+    def spy(tex, cfg, batches, subdiv, **kw):
+        calls.append(([[(uv.tobytes(), st is None) for uv, st in b]
+                       for b in batches], list(subdiv), kw.get("exact")))
+        return engine_batches(tex, cfg, batches, subdiv, **kw)
+
+    monkeypatch.setattr(tbake, "classify_work_items_batches", spy)
+    tc, ib = _mesh(24, 9)
+    plane = standard_circle(64, 64)
+    tp = tgpu.Pipeline()
+    jcfg, tcfg = _cfgs([plane], tex_coords=tc, index_buffer=ib,
+                       index_count=len(ib), max_subdivision_level=3,
+                       bake_flags=flags, enable_subdivision_level_buffer=True,
+                       subdivision_levels=FINE_LEVELS, **fields)
+    _both(jcfg, tcfg, tpipe=tp)
+    ranges = tp._batch_ranges(tcfg, FINE_LEVELS.astype(np.int32))
+    assert len(ranges) == n_ranges == tp.last_dispatch_stats["batch_count"]
+    gpu_calls = calls[:]
+    assert len(gpu_calls) == n_ranges
+    for (s, e), (chunks, levels, exact) in zip(ranges, gpu_calls):
+        del calls[:]
+        ot.bake(convert.bake_input(
+            [plane], 1, tex_coords=tc, index_buffer=ib[3 * s:3 * e],
+            index_count=3 * (e - s), max_subdivision_level=3,
+            subdivision_levels=FINE_LEVELS[s:e]), device="cpu")
+        (want,) = calls
+        assert (chunks, levels) == want[:2]
+        assert want[2] is None
+        assert exact == ("torch" if flags & 4 else None)
+        assert sorted(set(levels)) == [2, 3]
+        assert all(fresh for c in chunks for _, fresh in c)
+        assert sum(map(len, chunks)) == e - s
 
 
 def test_dispatch_default_device_is_the_card(monkeypatch):

@@ -3,7 +3,7 @@ small GPU-baker dispatch on the CPU under a profiler opens every span
 of the baker's host path, each nested as `gpu/baker.py` opens it (the
 levels once, directly inside `omm.gpu.dispatch`, and a lone
 `get_pre_dispatch_info` opens them once; the execute's parts directly
-inside it, the batch pipeline's spans inside
+inside it, the bake's fine pass and the batch pipeline's spans inside
 `omm.gpu.batches`, the CPU tail's names inside `omm.gpu.tail`); with no
 profiler it enters no `record_function`; `pipeline_counts()["gpu_batch"]`
 counts the dispatch's
@@ -30,8 +30,10 @@ EXECUTE_CHILDREN = ("omm.gpu.work_setup", "omm.gpu.batches",
                     "omm.desc_patch", "omm.gpu.tail")
 #: the CPU tail's names, inside omm.gpu.tail
 TAIL_CHILDREN = ("omm.histograms", "omm.sort", "omm.serialize")
-#: the batch pipeline's calling-thread spans inside omm.gpu.batches
-BATCH_CHILDREN = ("omm.plan", "omm.submit", "omm.drain", "omm.post_wait")
+#: the bake's fine pass (bake.classify_fine) and the batch pipeline's
+#: calling-thread spans, inside omm.gpu.batches
+BATCH_CHILDREN = ("omm.chunk", "omm.plan", "omm.submit", "omm.drain",
+                  "omm.post_wait", "omm.set_states")
 
 TINY = 4 * 4 ** 4 * 8  # four level-4 primitives of scratch
 
