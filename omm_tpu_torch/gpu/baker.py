@@ -11,7 +11,7 @@ maxScratchMemorySize (bake_gpu_impl.cpp:434-679, 788-1272).
 Here the chain is a plan of labeled passes that this module executes on
 a torch device: indirect dispatch becomes per-level batches of the
 two-phase engine (the bake's fine pass, `bake.classify_fine`), the CAS
-hash-table dedup of work-setup (omm_work_setup_cs.cs.hlsl) a dict over
+hash-table dedup of work-setup (omm_work_setup_cs.cs.hlsl) a sort over
 UV keys.  The plan is still introspectable (pass labels mirror the
 reference's debug markers, `rhi.record_chain` walks it) and the setup
 and bake phases can run separately (PerformSetup / PerformBake,
@@ -440,24 +440,38 @@ class Pipeline:
                     levels: np.ndarray):
         """WorkSetup of the triangles `tris` of `cfg`: first-occurrence
         dedup on (UVs, level) like the CAS hash table
-        (omm_work_setup_cs.cs.hlsl:26-153) but via a dict."""
-        dedup = not (cfg.bake_flags & GpuBakeFlags.DisableTexCoordDeduplication)
-        items: list[WorkItem] = []
-        seen: dict = {}
-        for i in range(len(tris)):
-            if not np.isfinite(tris[i]).all():
-                continue
-            key = (tris[i].tobytes(), int(levels[i]))
-            hit = seen.get(key) if dedup else None
-            if hit is None:
-                seen[key] = len(items)
-                items.append(WorkItem(subdivision_level=int(levels[i]),
-                                      vm_format=cfg.global_format,
-                                      uv_tri=tris[i],
-                                      primitive_indices=[i]))
-            else:
-                items[hit].primitive_indices.append(i)
-        return items
+        (omm_work_setup_cs.cs.hlsl:26-153), in array passes.  Triangles
+        with a non-finite UV are skipped; the key is the row's 24 UV
+        bytes and its level, so -0.0 and +0.0, or rotated vertices, are
+        different keys.  Items follow their first triangle's index, each
+        listing its triangles in ascending order; under
+        DisableTexCoordDeduplication every finite triangle is an item."""
+        keep = np.flatnonzero(np.isfinite(tris).all(axis=(1, 2)))
+        # `order`: the finite triangles, each group's ascending and
+        # together; `new` marks the first of each group in `order`
+        order, new = keep, np.ones(len(keep), bool)
+        if not cfg.bake_flags & GpuBakeFlags.DisableTexCoordDeduplication:
+            key = np.concatenate(
+                [tris[keep].reshape(-1, 6).view(np.uint64),
+                 np.asarray(levels, np.int64)[keep, None].view(np.uint64)],
+                axis=1)
+            rows = np.lexsort(key.T)   # stable: equal keys by index
+            key = key[rows]
+            new[1:] = (key[1:] != key[:-1]).any(axis=1)
+            order = keep[rows]
+        starts = np.flatnonzero(new)
+        ends = np.append(starts[1:], len(order))
+        by_first = np.argsort(order[starts])
+        starts, ends = starts[by_first], ends[by_first]
+        heads = order[starts]
+        prims = order.tolist()
+        return [WorkItem(subdivision_level=level,
+                         vm_format=cfg.global_format,
+                         uv_tri=tris[h],
+                         primitive_indices=prims[a:b])
+                for h, level, a, b in zip(heads.tolist(),
+                                          levels[heads].tolist(),
+                                          starts.tolist(), ends.tolist())]
 
     @spanned("omm.gpu.execute")
     def _execute(self, cfg: DispatchConfigDesc, tris: np.ndarray,

@@ -1,6 +1,6 @@
 """omm_tpu_torch.gpu on the CPU against omm_tpu.gpu: the dispatch chain's
-results, post-dispatch info, pre-dispatch plans, batching and recorded
-command streams.
+results, post-dispatch info, pre-dispatch plans, levels, WorkSetup's
+items, batching and recorded command streams.
 
 Each test builds the JAX package's DispatchConfigDesc and the port's
 (through convert.dispatch_config) from the same numpy arrays and integer
@@ -13,6 +13,8 @@ circle statistics, the packaging flags, setup before build, scratch
 batching, the RHI) and the GPU leg of tests/test_differential_fuzz.py."""
 import dataclasses
 import importlib
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from omm_tpu import gpu as jgpu  # noqa: E402
 from omm_tpu_torch import convert, twophase  # noqa: E402
 from omm_tpu_torch import gpu as tgpu  # noqa: E402
 from omm_tpu_torch.types import BakeError, Result  # noqa: E402
+from ommbench.generators import leaf_cards  # noqa: E402
 
 from fixtures import (hexagons, mandelbrot, sine_fp32,  # noqa: E402
                       standard_circle)
@@ -513,6 +516,107 @@ def test_gpu_levels_equal_the_jax_package(case):
     got = tp._subdiv_levels(tcfg, tp._triangles(tcfg))
     assert got.dtype == want.dtype == np.int32
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# WorkSetup (array passes) against the JAX package's per-triangle loop
+# ---------------------------------------------------------------------------
+
+_SHARED_ATLAS = json.loads((pathlib.Path(__file__).parents[1] / "ommbench"
+                            / "traffic" / "shared_atlas.json").read_text())
+
+
+def _library_mesh(j):
+    """Library mesh j of the benchmark's shared_atlas traffic: 6 UV
+    variants over a few hundred quads, so 12 distinct triangles."""
+    uvs, ib = leaf_cards.quad_mesh(0, leaf_cards.LIBRARY, j,
+                                   _SHARED_ATLAS["params"]["mesh"])
+    return dict(tex_coords=uvs, index_buffer=ib, index_count=len(ib),
+                max_subdivision_level=8, dynamic_subdivision_scale=2.0)
+
+
+def _rows(tris, **fields):
+    """A mesh whose triangles are the rows of `tris`, each with vertices
+    of its own, at level 6 unless `fields` say otherwise."""
+    tris = np.asarray(tris, np.float32).reshape(-1, 3, 2)
+    kw = dict(tex_coords=tris.reshape(-1, 2),
+              index_buffer=np.arange(3 * len(tris), dtype=np.uint32),
+              index_count=3 * len(tris), max_subdivision_level=6,
+              dynamic_subdivision_scale=0.0)
+    kw.update(fields)
+    return kw
+
+
+def _drawn(n, distinct, seed):
+    """n triangles drawn from `distinct` random ones."""
+    rng = np.random.RandomState(seed)
+    base = rng.rand(distinct, 3, 2).astype(np.float32)
+    return base[rng.randint(0, distinct, n)]
+
+
+def _non_finite():
+    t = _drawn(40, 5, 1)
+    t[3, 1, 0], t[10, 2, 1], t[17, 0, 0] = np.nan, np.inf, -np.inf
+    t[25] = t[3]
+    return t
+
+
+def _all_non_finite():
+    t = _drawn(12, 3, 2)
+    t[np.arange(12), np.arange(12) % 3, np.arange(12) % 2] = [
+        np.nan, np.inf, -np.inf] * 4
+    return t
+
+
+_TRI = np.array([[0.0, 0.0], [0.5, 0.0], [0.0, 0.5]], np.float32)
+_NEG_ZERO = _TRI.copy()
+_NEG_ZERO[0, 0] = -0.0
+_FAR = np.random.RandomState(3).rand(300, 3, 2).astype(np.float32)
+_FAR[[150, 299]] = _FAR[0]
+_FAR[298] = _FAR[1]
+
+#: case -> (mesh fields, items with deduplication; without it, an item
+#: per finite triangle)
+WORK_SETUP = {
+    **{f"library_{j}": (_library_mesh(j), 12) for j in (0, 5, 7)},
+    "non_finite": (_rows(_non_finite()), 5),
+    "all_non_finite": (_rows(_all_non_finite()), 0),
+    "empty_mesh": (dict(_rows(_drawn(6, 2, 4)), index_count=0), 0),
+    "signed_zero": (_rows([_TRI, _NEG_ZERO, _TRI, _NEG_ZERO, _TRI]), 2),
+    "levels_differ": (_rows([_TRI] * 6, enable_subdivision_level_buffer=True,
+                            subdivision_levels=np.array(
+                                [3, 5, 3, 255, 5, 3], np.uint8)), 3),
+    "rotated": (_rows([_TRI, np.roll(_TRI, 1, 0), np.roll(_TRI, 2, 0),
+                       _TRI[::-1], np.roll(_TRI, 1, 0), _TRI]), 4),
+    "far_apart": (_rows(_FAR), 297),
+}
+
+
+def _items(items):
+    return [(type(it.subdivision_level), it.subdivision_level,
+             int(it.vm_format), it.uv_tri.dtype, it.uv_tri.shape,
+             it.uv_tri.tobytes(), it.primitive_indices) for it in items]
+
+
+@pytest.mark.parametrize("dedup", [True, False], ids=["dedup", "no_dedup"])
+@pytest.mark.parametrize("case", sorted(WORK_SETUP))
+def test_gpu_work_setup_equals_the_jax_package(case, dedup):
+    """The port's array-pass `_work_setup` against the JAX package's
+    per-triangle dict: the same items in the same order, each with the
+    same level, format, UV bytes and ascending primitive indices; with
+    DisableTexCoordDeduplication one item per finite triangle."""
+    fields, n_dedup = WORK_SETUP[case]
+    flags = 3 if dedup else 3 | int(tgpu.GpuBakeFlags.DisableTexCoordDeduplication)
+    jcfg, tcfg = _cfgs([np.zeros((64, 64), np.float32)], bake_flags=flags,
+                       global_format=1, **fields)
+    jp, tp = jgpu.Pipeline(), tgpu.Pipeline()
+    want = jp._work_setup(jcfg, jp._subdiv_levels(jcfg))
+    tris = tp._triangles(tcfg)
+    got = tp._work_setup(tcfg, tris, tp._subdiv_levels(tcfg, tris))
+    assert _items(got) == _items(want)
+    finite = int(np.isfinite(tris).all(axis=(1, 2)).sum())
+    assert len(got) == (n_dedup if dedup else finite)
+    assert all(it.vm_format == tcfg.global_format for it in got)
 
 
 def _chain(chain):
